@@ -1,7 +1,7 @@
 """Query attention, punishment scores and context aggregation.
 
 Counterparts of the JAX package's ``models/attention.py`` (reference
-model/utils.py:60-105, model/AnswerDecoder.py:155-182), eval mode:
+model/utils.py:60-105, model/AnswerDecoder.py:155-182):
 
 * ``QueryAttn``: Linear on the dynamic question embedding, L2-normalize
   (sum of squares clamped before the rsqrt), Linear -> 1, softmax over the
@@ -9,8 +9,9 @@ model/utils.py:60-105, model/AnswerDecoder.py:155-182), eval mode:
   the attended sum is over the raw word embeddings.
 * ``QueryPunish``: sigmoid(visual . Linear(guided query)) per clip,
   broadcast to module_dim // 4, the width of one GAT head.
-* ``ContextSelfAttn``: Linear (no bias) -> ELU -> Linear -> 1 -> softmax
-  over clips -> weighted sum of the visual features.
+* ``ContextSelfAttn``: dropout 0.15 (training mode) -> Linear (no bias) ->
+  ELU -> Linear -> 1 -> softmax over clips -> weighted sum of the
+  dropped-out visual features.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dualvgr_tpu_torch.ops.dropout import Dropout
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
@@ -67,10 +70,12 @@ class ContextSelfAttn(nn.Module):
 
     def __init__(self, module_dim: int = 768):
         super().__init__()
+        self.drop = Dropout(0.15)
         self.v_proj = nn.Linear(module_dim, module_dim, bias=False)
         self.attn = nn.Linear(module_dim, 1)
 
-    def forward(self, visual_feat):
+    def forward(self, visual_feat, generator=None):
         """(B, N, D) -> (B, D)."""
+        visual_feat = self.drop(visual_feat, generator)
         attn = torch.softmax(self.attn(F.elu(self.v_proj(visual_feat))), dim=1)
         return (attn * visual_feat).sum(dim=1)

@@ -1,5 +1,4 @@
-"""DualVGR: the full video-QA network (reference model/models.py:36-173),
-eval mode.
+"""DualVGR: the full video-QA network (reference model/models.py:36-173).
 
 Composition: QuestionEncoder ||| AppearanceEncoder ||| MotionEncoder ->
 stacked DualVGR units -> MFB appearance x motion fusion -> ContextSelfAttn
@@ -12,11 +11,18 @@ each stream, AttentionSFGCN fuses [common, specific], and the fusion is
 added to the stream. As in the JAX package, GAT bank k is
 cycle * graph_layers + layer and ``unit_layers`` is wired through.
 
-With ``use_kernels`` the model runs the port's two CUDA kernels on CUDA
-tensors: the BiLSTM recurrence in all three BiLSTMs and, with
-graph_layers == 1, one fused graph cycle per stream and unit.
-Without it, or on CPU tensors, the same arithmetic runs as plain PyTorch.
-The module state_dict uses the reference's key names.
+Eval mode (the default, ``model.eval()``) runs without autograd. Training
+mode (``model.train()``) takes a ``valid`` mask for the classifier's batch
+statistics and a generator for the dropout sites, and is differentiable.
+
+With ``use_kernels`` the model runs the port's CUDA kernels on CUDA
+tensors: in eval the BiLSTM recurrence in all three BiLSTMs and, with
+graph_layers == 1, one fused graph cycle per stream and unit; in training
+the trainable BiLSTM forward/backward pair in all three BiLSTMs, while the
+graph cycles run as the plain modules under autograd (the fused cycle has
+no backward, in the JAX package either). Without ``use_kernels``, or on
+CPU tensors, the same arithmetic runs as plain PyTorch. The module
+state_dict uses the reference's key names.
 """
 
 from __future__ import annotations
@@ -82,13 +88,14 @@ class DualVGRUnitStack(nn.Module):
         return gat_cycle(h, scores, *gat_c.merged(), *gat_s.merged(), *sfgcn.merged())
 
     def forward(self, appearance_feat, motion_feat, dynamic_question_embedding,
-                word_embedding, question_len, *, use_kernels: bool):
+                word_embedding, question_len, *, use_kernels: bool, generator=None):
         adj = dense_self_loop_adjacency(
             self.num_of_nodes, appearance_feat.dtype, appearance_feat.device
         )
         # the fused kernel covers exactly one GAT cycle (common, specific,
-        # fusion, residual); deeper graph stacks take the plain modules
-        fused = use_kernels and self.graph_layers == 1
+        # fusion, residual) and has no backward; deeper graph stacks and
+        # training take the plain modules
+        fused = use_kernels and not self.training and self.graph_layers == 1
         aq_fusion, mq_fusion, com_app_list, com_motion_list = [], [], [], []
         aq_embed = mq_embed = None
 
@@ -117,14 +124,14 @@ class DualVGRUnitStack(nn.Module):
 
             for j in range(self.graph_layers):
                 k = i * self.graph_layers + j
-                com_app = self.acGCN[k](aq, adj, app_scores)
-                aq = self.appearance_GCN[k](aq, adj, app_scores)
+                com_app = self.acGCN[k](aq, adj, app_scores, generator)
+                aq = self.appearance_GCN[k](aq, adj, app_scores, generator)
                 aq_fusion.append(aq)
                 com_app_list.append(com_app)
             for j in range(self.graph_layers):
                 k = i * self.graph_layers + j
-                com_motion = self.mcGCN[k](mq, adj, mot_scores)
-                mq = self.motion_GCN[k](mq, adj, mot_scores)
+                com_motion = self.mcGCN[k](mq, adj, mot_scores, generator)
+                mq = self.motion_GCN[k](mq, adj, mot_scores, generator)
                 mq_fusion.append(mq)
                 com_motion_list.append(com_motion)
 
@@ -141,9 +148,8 @@ class DualVGRUnitStack(nn.Module):
 
 
 class DualVGR(nn.Module):
-    """Full network (reference model/models.py:36-83), eval mode only, with
-    the GAT graph module (the reference's live one; ``PunishGCN`` is not
-    ported yet).
+    """Full network (reference model/models.py:36-83) with the GAT graph
+    module (the reference's live one; ``PunishGCN`` is not ported yet).
 
     Parameters are drawn at construction with the reference's init from
     ``generator`` (a fresh generator seeded 0 when none is given).
@@ -166,22 +172,40 @@ class DualVGR(nn.Module):
         init_dualvgr_(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self.eval()
 
-    @torch.no_grad()
     def forward(self, video_appearance_feat, video_motion_feat, question,
-                question_len) -> DualVGROutput:
+                question_len, valid=None, *, generator=None) -> DualVGROutput:
         """video_appearance_feat (B, C, F, vision_dim); video_motion_feat
-        (B, C, vision_dim); question (B, T) int; question_len (B,) int."""
+        (B, C, vision_dim); question (B, T) int; question_len (B,) int.
+
+        In training mode, ``valid`` (B,) float masks padded rows out of the
+        batch statistics, and ``generator`` (a ``torch.Generator`` on the
+        inputs' device) feeds the dropout sites. Eval mode ignores both and
+        runs under ``torch.no_grad()``.
+        """
+        if not self.training:
+            with torch.no_grad():
+                return self._forward(video_appearance_feat, video_motion_feat, question,
+                                     question_len, None, None)
+        if generator is None:
+            raise ValueError("the training forward draws its dropout from an explicit torch.Generator")
+        return self._forward(video_appearance_feat, video_motion_feat, question, question_len,
+                             valid, generator)
+
+    def _forward(self, video_appearance_feat, video_motion_feat, question, question_len,
+                 valid, generator) -> DualVGROutput:
         kern = self.use_kernels
         question_embedding, words, dynamic = self.linguistic_input_unit(
-            question, question_len, use_kernel=kern
+            question, question_len, use_kernel=kern, generator=generator
         )
-        app = self.visual_appearance_input_unit(video_appearance_feat.float(), use_kernel=kern)
+        app = self.visual_appearance_input_unit(
+            video_appearance_feat.float(), use_kernel=kern, generator=generator
+        )
         motion = self.visual_motion_input_unit(video_motion_feat.float())
         visual, aq_embed, mq_embed, com_app, com_motion, aq_f, mq_f = self.visual_input_unit(
-            app, motion, dynamic, words, question_len, use_kernels=kern
+            app, motion, dynamic, words, question_len, use_kernels=kern, generator=generator
         )
-        visual = self.feature_aggregation(visual)
-        logits = self.output_unit(question_embedding, visual)
+        visual = self.feature_aggregation(visual, generator)
+        logits = self.output_unit(question_embedding, visual, valid, generator)
         return DualVGROutput(logits, aq_embed, mq_embed, com_app, com_motion, aq_f, mq_f)
 
 

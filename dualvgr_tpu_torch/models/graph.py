@@ -1,7 +1,9 @@
 """Query-punished multi-head graph attention over clip nodes.
 
 Counterparts of the JAX package's ``models/graph.py`` (reference
-model/GraphNN.py:77-178, model/Attention.py:11-23), eval mode. The modules
+model/GraphNN.py:77-178, model/Attention.py:11-23). In training mode
+PunishGAT drops out its input, its attention and its output (0.15 each),
+drawing from the generator passed to ``forward``. The modules
 keep the reference's per-head layout (``attention_{h}.W``: Linear(D, hd),
 ``attention_{h}.a``: Linear(2*hd, 1)), so their state_dict names are the
 reference's; ``merged()`` hands the heads out merged along columns, the
@@ -17,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dualvgr_tpu_torch.ops.dropout import Dropout
 
 
 class _GATHead(nn.Module):
@@ -36,6 +40,7 @@ class PunishGAT(nn.Module):
         self.n_heads, self.head_dim = n_heads, head_dim
         for h in range(n_heads):
             self.add_module(f"attention_{h}", _GATHead(in_dim, head_dim))
+        self.drop = Dropout(0.15)
 
     def merged(self):
         """(w (D, H*hd), b (H*hd,), a (H, 2*hd), a_bias (H,)), contiguous."""
@@ -46,12 +51,12 @@ class PunishGAT(nn.Module):
         a_bias = torch.cat([hd.a.bias for hd in heads])
         return w, b, a, a_bias
 
-    def forward(self, h, adj, scores):
+    def forward(self, h, adj, scores, generator=None):
         """h (B, N, D); adj (N, N); scores (B, N, hd) or None -> (B, N, H*hd)."""
         b, n, _ = h.shape
         nh, hd = self.n_heads, self.head_dim
         w, bias, a, a_bias = self.merged()
-        wh = (h @ w + bias).view(b, n, nh, hd)
+        wh = (self.drop(h, generator) @ w + bias).view(b, n, nh, hd)
         src = torch.einsum("bnhd,hd->bhn", wh, a[:, :hd])
         dst = torch.einsum("bnhd,hd->bhn", wh, a[:, hd:])
         e = src[..., :, None] + dst[..., None, :] + a_bias[None, :, None, None]
@@ -60,9 +65,9 @@ class PunishGAT(nn.Module):
         e = torch.where(adj[None, None] > 0, e, torch.full_like(e, -9e15))
         if scores is not None:
             wh = wh * scores[:, :, None, :]
-        attn = torch.softmax(e, dim=-1)
+        attn = self.drop(torch.softmax(e, dim=-1), generator)
         out = F.elu(torch.einsum("bhij,bjhd->bihd", attn, wh))
-        return out.reshape(b, n, nh * hd)
+        return self.drop(out.reshape(b, n, nh * hd), generator)
 
 
 class AttentionSFGCN(nn.Module):

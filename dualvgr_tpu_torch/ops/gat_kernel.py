@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm_kernel import _check
+from dualvgr_tpu_torch.ops.lstm_kernel import _check, refuse_autograd
 
 MAX_NODES = 20
 MAX_DIM = 768  # kThreads * kCols in the source
@@ -68,8 +68,11 @@ def _launch_fn():
 
 
 def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w):
-    """One stream's cycle (see the module docstring). Returns (out, common, spec)."""
+    """One stream's cycle (see the module docstring). Returns (out, common, spec).
+    Eval only: raises if grad mode is on and an input requires grad (the
+    JAX package gives the TPU kernel no backward either)."""
     args = (h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w)
+    refuse_autograd("gat_cycle", *args)
     if h.device.type == "cpu":
         return gat_cycle_reference(*args)
     if h.device.type != "cuda":

@@ -36,19 +36,27 @@ def _lstm_step(gates, c):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def bilstm_recurrence_reference(
-    xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False
-):
-    """Plain PyTorch version of the recurrence, with the kernel's contract."""
-    t_total, r, g = xproj_f.shape
+def recurrence_loop(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False,
+                    keep_states: bool = False):
+    """The plain BiLSTM recurrence over precomputed gates.
+
+    Returns ``(final, outs, hprev, cprev)``: ``outs`` (R, T, 2H) or None
+    without ``with_outputs``; with ``keep_states`` the pre-step states
+    ``(h_{t-1}, c_{t-1})`` of every step, (T, R, 2H) each in kernel time
+    (the backward half time-reversed), else None.
+    """
+    t_total, r, g = xf.shape
     hidden = g // 4
-    hf = cf = hb = cb = xproj_f.new_zeros((r, hidden))
+    hf = cf = hb = cb = xf.new_zeros((r, hidden))
     if lengths is not None:
-        lens = lengths.to(device=xproj_f.device, dtype=torch.int64).view(r, 1)
-    outs_f, outs_b = [], []
+        lens = lengths.to(device=xf.device, dtype=torch.int64).view(r, 1)
+    outs_f, outs_b, hprev, cprev = [], [], [], []
     for t in range(t_total):
-        hf_new, cf_new = _lstm_step(xproj_f[t] + hf @ w_hh_f, cf)
-        hb_new, cb_new = _lstm_step(xproj_b_rev[t] + hb @ w_hh_b, cb)
+        if keep_states:
+            hprev.append(torch.cat([hf, hb], dim=-1))
+            cprev.append(torch.cat([cf, cb], dim=-1))
+        hf_new, cf_new = _lstm_step(xf[t] + hf @ w_hh_f, cf)
+        hb_new, cb_new = _lstm_step(xb_rev[t] + hb @ w_hh_b, cb)
         if lengths is None:
             hf, cf, hb, cb = hf_new, cf_new, hb_new, cb_new
             out_f, out_b = hf, hb
@@ -64,10 +72,39 @@ def bilstm_recurrence_reference(
             outs_f.append(out_f)
             outs_b.append(out_b)
     final = torch.cat([hf, hb], dim=-1)
-    if not with_outputs:
-        return final
-    outs = torch.cat([torch.stack(outs_f, 1), torch.stack(outs_b[::-1], 1)], dim=-1)
-    return final, outs
+    outs = None
+    if with_outputs:
+        outs = torch.cat([torch.stack(outs_f, 1), torch.stack(outs_b[::-1], 1)], dim=-1)
+    if not keep_states:
+        return final, outs, None, None
+    return final, outs, torch.stack(hprev), torch.stack(cprev)
+
+
+def bilstm_recurrence_reference(
+    xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False
+):
+    """Plain PyTorch version of the recurrence, with the kernel's contract."""
+    final, outs, _, _ = recurrence_loop(
+        xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs
+    )
+    return (final, outs) if with_outputs else final
+
+
+def refuse_autograd(name, *tensors):
+    """Raise where a kernel would silently cut the autograd graph.
+
+    The kernels launch through ctypes and record nothing for autograd, so
+    with grad mode on, an input that requires grad would come back with
+    detached outputs and its weights would get no gradient. Runs before
+    the device dispatch, on CPU tensors too. The trainable BiLSTM goes
+    through ``ops/lstm_train.py``, whose Functions call the kernels with
+    grad mode off.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} records nothing for autograd, and an input requires grad: call it "
+            "under torch.no_grad(), or use the trainable ops of dualvgr_tpu_torch.ops.lstm_train"
+        )
 
 
 def _launch_fn():
@@ -94,7 +131,9 @@ def bilstm_recurrence(
     """Fused BiLSTM recurrence (see the module docstring for the contract).
 
     Returns ``final`` (R, 2H), or ``(final, outs)`` with ``with_outputs``.
+    Raises if grad mode is on and an input requires grad (``refuse_autograd``).
     """
+    refuse_autograd("bilstm_recurrence", xproj_f, xproj_b_rev, w_hh_f, w_hh_b)
     if xproj_f.device.type == "cpu":
         return bilstm_recurrence_reference(
             xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs

@@ -1,0 +1,199 @@
+"""Train step, optimizer and train state for the port.
+
+The port's own copy of ``dualvgr_tpu/train_lib.py`` in PyTorch idiom. The
+recipe (reference train.py:85,158,179-180,341-349): Adam with global-norm
+gradient clipping at 12, and the learning rate halved every 10 epochs,
+keyed on the number of updates already applied.
+
+One ``train_step`` is: the forward in training mode (dropout from the
+state's generator, the classifier's batch statistics over the ``valid``
+rows), CE + alpha * common + beta * HSIC, the backward, then the clip and
+one Adam update. Three details follow optax, which the JAX package uses:
+
+* the clip scales by ``max_norm / g_norm`` only when ``g_norm >= max_norm``
+  (``torch.nn.utils.clip_grad_norm_`` would divide by ``g_norm + 1e-6``);
+* the learning rate of an update is the schedule at the count of updates
+  applied before it (optax's ``count``); with ``grad_accum = K`` that count
+  is turned back into micro-steps, so decay lands on the same epochs;
+* with ``grad_accum = K`` every K calls make one update from the MEAN of
+  their K gradients (``optax.MultiSteps``), one clip and one Adam step.
+
+The state is updated in place; ``train_step`` returns the metrics as 0-d
+tensors on the model's device, so a loop need not wait for the card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from dualvgr_tpu_torch.models.dualvgr import DualVGR
+from dualvgr_tpu_torch.ops.losses import dualvgr_total_loss
+
+
+def make_lr_schedule(base_lr: float, steps_per_epoch: int, decay_epochs: int = 10):
+    """lr = base * 0.5^(epoch // decay_epochs), epoch = step // steps_per_epoch."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return base_lr * 0.5 ** (epoch // decay_epochs)
+
+    return schedule
+
+
+# optax.adam's defaults, which the JAX package uses
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    """What ``make_optimizer`` describes: Adam, the global-norm clip, the
+    schedule and the number of micro-steps per update. ``steps_per_epoch``
+    counts micro-steps."""
+
+    base_lr: float
+    steps_per_epoch: int
+    max_grad_norm: float = 12.0
+    grad_accum: int = 1
+
+    def lr(self, updates: int) -> float:
+        """The learning rate of the update that follows ``updates`` applied ones."""
+        return make_lr_schedule(self.base_lr, self.steps_per_epoch)(updates * self.grad_accum)
+
+
+def make_optimizer(base_lr: float, steps_per_epoch: int, max_grad_norm: float = 12.0,
+                   grad_accum: int = 1) -> Optimizer:
+    """Adam + global-norm clip (+ gradient accumulation over ``grad_accum``
+    micro-steps). The batch-coupled terms (batch-norm statistics, the HSIC
+    Gram matrices) still see each micro-batch on its own, as in the JAX
+    package."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    return Optimizer(base_lr, steps_per_epoch, max_grad_norm, grad_accum)
+
+
+@dataclass
+class TrainState:
+    """The model (in training mode), its optimizer, the dropout generator and
+    the counts: ``step`` micro-steps taken, ``updates`` Adam updates applied,
+    ``mini_step`` micro-gradients waiting in ``acc_grads``."""
+
+    model: DualVGR
+    optimizer: Optimizer
+    adam: torch.optim.Adam
+    generator: torch.Generator
+    step: int = 0
+    updates: int = 0
+    mini_step: int = 0
+    acc_grads: list[torch.Tensor] = field(default_factory=list)
+
+
+def create_train_state(model: DualVGR, optimizer: Optimizer, *, seed: int = 0) -> TrainState:
+    """Put ``model`` in training mode and give it Adam and a dropout
+    generator seeded ``seed`` on the model's device."""
+    device = next(model.parameters()).device
+    model.train()
+    params = list(model.parameters())
+    adam = torch.optim.Adam(params, lr=optimizer.lr(0), betas=ADAM_BETAS, eps=ADAM_EPS)
+    acc = [torch.zeros_like(p) for p in params] if optimizer.grad_accum > 1 else []
+    return TrainState(model, optimizer, adam, torch.Generator(device=device).manual_seed(seed),
+                      acc_grads=acc)
+
+
+def set_glove(state: TrainState, glove_matrix) -> TrainState:
+    """Overwrite the question embedding with GloVe (reference train.py:75-79)."""
+    weight = state.model.linguistic_input_unit.encoder_embed.weight
+    glove = torch.as_tensor(glove_matrix, dtype=torch.float32)
+    if tuple(glove.shape) != tuple(weight.shape):
+        raise ValueError(f"GloVe matrix shape {tuple(glove.shape)} != embedding {tuple(weight.shape)}")
+    with torch.no_grad():
+        weight.copy_(glove)
+    return state
+
+
+def reset_grad_accum(state: TrainState) -> TrainState:
+    """Drop a partly filled accumulation window (after a restore, which
+    replays the interrupted epoch from its start); the update count the
+    schedule runs on is kept."""
+    for acc in state.acc_grads:
+        acc.zero_()
+    state.mini_step = 0
+    return state
+
+
+def _unpack(batch, device):
+    """(app, motion, question, qlen, answers[, valid]) as tensors on ``device``;
+    ``valid`` defaults to all ones."""
+    if len(batch) not in (5, 6):
+        raise ValueError(f"a batch is 5 or 6 arrays, got {len(batch)}")
+    app, mot = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in batch[:2])
+    q, qlen = (torch.as_tensor(a, device=device) for a in batch[2:4])
+    answers = torch.as_tensor(batch[4], device=device).long()
+    if len(batch) == 6:
+        valid = torch.as_tensor(batch[5], dtype=torch.float32, device=device)
+    else:
+        valid = torch.ones(answers.shape[0], dtype=torch.float32, device=device)
+    return app, mot, q, qlen, answers, valid
+
+
+def forward_backward(state: TrainState, batch, *, alpha: float, beta: float) -> dict:
+    """The forward in training mode, the total loss and its backward: leaves
+    the gradient in each parameter's ``.grad`` and returns the metrics
+    ``{loss, ce, common, dependence, correct, count}``."""
+    model = state.model
+    app, mot, q, qlen, answers, valid = _unpack(batch, next(model.parameters()).device)
+    model.zero_grad(set_to_none=True)
+    out = model(app, mot, q, qlen, valid, generator=state.generator)
+    total, aux = dualvgr_total_loss(
+        out.logits, answers, out.aq_fusion, out.com_app, out.mq_fusion, out.com_motion,
+        alpha=alpha, beta=beta, num_of_nodes=model.visual_input_unit.num_of_nodes, valid=valid,
+    )
+    total.backward()
+    with torch.no_grad():
+        correct = ((out.logits.argmax(dim=1) == answers) * valid).sum()
+    return {
+        "loss": total.detach(), "ce": aux["ce"].detach(), "common": aux["common"].detach(),
+        "dependence": aux["dependence"].detach(), "correct": correct,
+        "count": valid.sum().to(torch.int32),
+    }
+
+
+@torch.no_grad()
+def apply_gradients(state: TrainState) -> None:
+    """Accumulate the gradients in ``.grad`` or, at the end of a window,
+    clip them and take one Adam step at the schedule's learning rate."""
+    opt = state.optimizer
+    params = list(state.model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    state.step += 1
+    if opt.grad_accum > 1:
+        # running mean, as optax.MultiSteps accumulates
+        for acc, g in zip(state.acc_grads, grads):
+            acc.add_((g - acc) / (state.mini_step + 1))
+        state.mini_step += 1
+        if state.mini_step < opt.grad_accum:
+            return
+        grads = [acc.clone() for acc in state.acc_grads]
+        reset_grad_accum(state)
+    g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    clipped = g_norm >= opt.max_grad_norm
+    for p, g in zip(params, grads):
+        p.grad = torch.where(clipped, g / g_norm * opt.max_grad_norm, g)
+    for group in state.adam.param_groups:
+        group["lr"] = opt.lr(state.updates)
+    state.adam.step()
+    state.updates += 1
+
+
+def train_step(state: TrainState, batch, *, alpha: float, beta: float) -> dict:
+    """One micro-step: ``forward_backward`` then ``apply_gradients``.
+
+    ``batch`` = (app, motion, question, qlen, answers) or the same +
+    (valid,), numpy arrays or tensors; ``valid`` (B,) float masks padded
+    rows of a final partial batch. Returns the metrics
+    ``{loss, ce, common, dependence, correct, count}``.
+    """
+    metrics = forward_backward(state, batch, alpha=alpha, beta=beta)
+    apply_gradients(state)
+    return metrics
