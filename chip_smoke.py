@@ -4,36 +4,55 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (an H100 is the target) and ``nvcc``. Phases, one
-line each:
+line each, in this order ("bf16": ``compute_dtype="bfloat16"``, the bf16
+streaming path):
 
 1. device: torch and CUDA versions, the card's name and power limit;
-2. build: both kernels from dualvgr_tpu_torch/csrc with nvcc for sm_90a;
-3. the BiLSTM recurrence kernel against its plain version at the three
-   shapes of the flagship forward, with bidirectional torch.nn.LSTM (cuDNN,
-   projection included) timed as the library yardstick;
-4. the graph-cycle kernel against its plain version on the appearance and
-   the motion stream's inputs, B=256, N=16, D=768;
-5. the eval forward at the MSRVTT-QA flagship width, batch 256, kernel path
-   against plain path, launch counts per forward, QA/s;
-6. serving: a BatchingEngine(max_batch=32) around build_predict_fn answers
-   64 concurrent requests at full width; this is the serving path, whose
-   launches of kernels 1 and 2 are counted;
-7. bilstm_train: the trainable recurrence's forward and backward kernels
+2. build: every source in dualvgr_tpu_torch/csrc with nvcc for sm_90a;
+3. bilstm: the BiLSTM recurrence kernel against its plain version at the
+   three shapes of the flagship forward, with bidirectional torch.nn.LSTM
+   (cuDNN, projection included) timed as the library yardstick;
+4. gat_cycle: the graph-cycle kernel against its plain version on the
+   appearance and the motion stream's inputs, B=256, N=16, D=768;
+5. eval: the eval forward at the MSRVTT-QA flagship width, batch 256,
+   kernel path against plain path, launch counts per forward, QA/s;
+6. bilstm *_bf16: kernel 1 with bf16 gates at the three shapes of the bf16
+   forward and kernels 3 and 4 with bf16 gates at the appearance shape of
+   the bf16 train step, against their plain versions;
+7. eval bf16: the flagship forward in bf16, kernel routing: launches per
+   forward (kernel 6 once, kernel 1 three times with bf16 gates, kernel 2
+   twice, in fp32), ms and QA/s, logits against the fp32 kernel path;
+8. serve, serve bf16: a BatchingEngine(max_batch=32) around
+   build_predict_fn answers 64 concurrent requests at full width, fp32
+   then bf16; this is the serving path, whose launches of kernels 1, 2
+   (and 6 in bf16) are counted;
+9. bilstm_train: the trainable recurrence's forward and backward kernels
    (kernels 3 and 4) against their plain versions at the three shapes of
    the flagship train step, with bidirectional torch.nn.LSTM (cuDNN) in
    training mode timed as the yardstick: its forward for kernel 3, its
    backward for kernel 4;
-8. train: the train step at the flagship width, batch 256 with the last 6
-   rows padded: after 2 warm-up steps, one step's loss and per-module
-   gradient norms, kernel path against plain path with dropout off; then
-   5 timed steps with dropout on (ms per step, QA/s, losses, peak memory),
-   the training path whose launches of kernels 3 and 4 are counted (3 each
-   per step, none of kernels 1 and 2); one step under the profiler.
+10. train: the train step at the flagship width, batch 256 with the last 6
+    rows padded: after 2 warm-up steps, one step's loss and per-module
+    gradient norms, kernel path against plain path with dropout off; then
+    5 timed steps with dropout on (ms per step, QA/s, losses, peak memory),
+    the training path whose launches of kernels 3 and 4 are counted (3 each
+    per step, none of kernels 1, 2, 5 and 6); one step under the profiler;
+11. train bf16: the same in bf16, the agreement against the fp32 kernel
+    path from the same weights; launches per step: kernel 6 once (no
+    tanh), kernels 3 and 4 three times each;
+12. proj: kernel 5 (both time orders) and kernel 6 (tanh fused and not)
+    against their plain versions at R = 4096 (batch 256) and R = 512
+    (batch 32), bf16 out, with the largest difference in bf16 steps and the
+    share of elements that differ; ms, plain ms, the library yardsticks
+    (the probe's v0 and v1) and the bound at the bf16 tensor-core peak;
+    then the port's probe (``dualvgr_tpu_torch/bench/proj_probe.py``),
+    v0-v4, one line, and one call of its v2, whose 2 launches of kernel 5
+    are counted.
 
 Then one JSON line with the kernel table and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
-port's own seeded init. Everything runs in fp32: TF32 is switched off for
-matmuls and for cuDNN, so the plain versions and the yardstick are fp32.
+port's own seeded init. TF32 is switched off for matmuls and for cuDNN, so
+the fp32 paths, the plain versions and the yardsticks are fp32.
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ import torch
 from dualvgr_tpu_torch import (
     BatchingEngine, build_model, build_predict_fn, create_train_state, make_optimizer, train_step,
 )
+from dualvgr_tpu_torch.bench import proj_probe
 from dualvgr_tpu_torch.config import cfg_from_file
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.dropout import Dropout
@@ -58,6 +78,9 @@ from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
 from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence, bilstm_recurrence_reference
 from dualvgr_tpu_torch.ops.lstm_train_kernel import (
     bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd, bilstm_train_fwd_reference,
+)
+from dualvgr_tpu_torch.ops.proj_kernel import (
+    input_proj_both, input_proj_both_reference, input_proj_one, input_proj_one_reference,
 )
 from dualvgr_tpu_torch.train_lib import forward_backward
 
@@ -72,10 +95,13 @@ SERVE_BATCH, SERVE_REQUESTS, TOP_K = 32, 64, 5
 TRAIN_PAD, ALPHA, BETA = 6, 1.0, 1e-8
 TRAIN_CFG = "configs/msrvtt_qa_DualVGR_16.yml"
 WARMUP_STEPS, TIMED_STEPS = 2, 5
-# H100 SXM published peaks: fp32 outside the
-# tensor cores, and HBM3 bandwidth
+# H100 SXM published peaks: fp32 outside the tensor cores, dense bf16 on
+# the tensor cores (kernels 5 and 6), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+BF16 = torch.bfloat16
+PROJ_ROWS = (BATCH * CLIPS, SERVE_BATCH * CLIPS)  # the projection's R at batch 256 and 32
 # tolerances, fp32 without TF32:
 #   recurrence: 16-24 steps of tanh/sigmoid-bounded states; only the sum
 #   order of the 384-long products differs -> 1e-4 absolute
@@ -94,6 +120,24 @@ MIN_ARGMAX_AGREEMENT = 0.99
 TOL_LSTM_BWD = 1e-3
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GNORM = 1e-3
+# bf16 streaming:
+#   bf16 outputs (kernels 5 and 6, kernel 1 with bf16 gates) against their
+#   plain versions: a sum in another order may cross a bf16 rounding
+#   boundary, so one bf16 step of the reference's magnitude, plus the fp32
+#   tolerance for values near zero (1e-5 for the projection's sums, TOL_LSTM
+#   for the recurrence)
+#   the bf16 paths against the fp32 kernel path: the CPU tests measured the
+#   JAX package's bf16-vs-fp32 gap (tests/test_torch_model_bf16.py,
+#   tests/test_torch_train_bf16.py) at up to 1.2% of max|logit| in the
+#   logits, 0.13% in the loss and 2.2% in a module's gradient norm at
+#   module_dim 16; the limits are 4x those: logits within 5e-2 * max|logit|,
+#   the loss within 5e-3 relative, each module's gradient norm within 1e-1
+#   relative. An argmax may differ only on a row whose fp32 top-2 margin is
+#   within twice the largest logit difference.
+TOL_BF16_PROJ_ATOL = 1e-5
+TOL_BF16_LOGITS = 5e-2
+TOL_BF16_TRAIN_LOSS = 5e-3
+TOL_BF16_TRAIN_GNORM = 1e-1
 
 
 def check(cond, msg):
@@ -119,13 +163,25 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def max_err(a, b):
-    return (a - b).abs().max().item()
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check_bf16(name, got, want, atol):
+    """bf16 outputs against their plain version: within one bf16 step of
+    the reference plus ``atol``. Returns (max abs err, largest difference in
+    bf16 steps after ``atol``, share of elements that differ)."""
+    check(got.dtype == want.dtype == BF16 and got.shape == want.shape, f"{name}: dtype or shape")
+    check(torch.isfinite(got.float()).all().item(), f"{name}: non-finite kernel output")
+    steps, share, ok = proj_probe.compare(got, want, atol)
+    err = max_err(got, want)
+    check(ok, f"{name}: {steps:.2f} bf16 steps beyond {atol} (max abs err {err:.3e})")
+    return err, steps, share
 
 
 def phase_device():
@@ -162,27 +218,53 @@ def flagship_inputs(batch, gen):
     return app, mot, q.to(torch.int32), qlen
 
 
-def lstm_case(name, enc, x, lengths, with_outputs):
+def lstm_case(name, enc, x, lengths, with_outputs, gates=None):
     """Kernel vs plain recurrence on the projections of one BiLSTM of the
-    model, plus torch.nn.LSTM on the same rows as the yardstick."""
+    model, plus torch.nn.LSTM on the same rows as the yardstick; with
+    ``gates`` (bf16 xf, xb_rev) the bf16-gate variant, outputs in bf16, no
+    yardstick."""
     fwd, bwd = enc._params(""), enc._params("_reverse")
-    xf = time_major_input_proj(x, fwd)
-    xb = time_major_input_proj(x, bwd, reverse=True)
+    if gates is None:
+        xf = time_major_input_proj(x, fwd)
+        xb = time_major_input_proj(x, bwd, reverse=True)
+    else:
+        xf, xb = gates
     whf, whb = fwd.w_hh.t().contiguous(), bwd.w_hh.t().contiguous()
     args = (xf, xb, whf, whb, lengths)
     got = bilstm_recurrence(*args, with_outputs=with_outputs)
     torch.cuda.synchronize()
     want = bilstm_recurrence_reference(*args, with_outputs=with_outputs)
     got, want = (got, want) if with_outputs else ((got,), (want,))
-    errs = [max_err(g, w) for g, w in zip(got, want)]
-    check(all(torch.isfinite(g).all().item() for g in got), f"{name}: non-finite kernel output")
-    check(max(errs) <= TOL_LSTM, f"{name}: kernel vs plain max abs err {errs} > {TOL_LSTM}")
+    if gates is None:
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        check(all(torch.isfinite(g).all().item() for g in got), f"{name}: non-finite kernel output")
+        check(max(errs) <= TOL_LSTM, f"{name}: kernel vs plain max abs err {errs} > {TOL_LSTM}")
+    else:
+        errs = [check_bf16(f"bilstm {name}", g, w, TOL_LSTM)[0] for g, w in zip(got, want)]
 
     ms = time_ms(lambda: bilstm_recurrence(*args, with_outputs=with_outputs), 10)
     plain_ms = time_ms(lambda: bilstm_recurrence_reference(*args, with_outputs=with_outputs), 3)
-
     t_total, r, g = xf.shape
     h = g // 4
+    # what these inputs need: a padded step leaves the state as it was, so
+    # each direction runs len_r steps of row r, each an (H) @ (H, 4H)
+    # product reading that step's 4H gates
+    steps = t_total * r if lengths is None else int(lengths.sum().item())
+    gb = xf.element_size()  # bytes per gate and per output
+    flops = 2 * steps * 2 * h * g
+    nbytes = gb * 2 * steps * g + 4 * 2 * whf.numel() + gb * r * 2 * h
+    if lengths is not None:
+        nbytes += 4 * r
+    if with_outputs:
+        nbytes += gb * r * t_total * 2 * h
+    bms, by = bound_ms(flops, nbytes)
+    if gates is not None:
+        say(f"bilstm {name}", T=t_total, R=r, H=h, gates="bf16", masked=lengths is not None,
+            outputs=with_outputs, max_abs_err=f"{max(errs):.3e}", tol=f"1 bf16 step + {TOL_LSTM}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+        return dict(shape=name, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms, flops=flops,
+                    bytes=nbytes)
+
     lstm = torch.nn.LSTM(x.shape[-1], h, batch_first=True, bidirectional=True).to(x.device)
     with torch.no_grad():
         for sfx, p in (("", fwd), ("_reverse", bwd)):
@@ -196,18 +278,6 @@ def lstm_case(name, enc, x, lengths, with_outputs):
         )
     with torch.no_grad():
         library_ms = time_ms(lambda: lstm(lib_in), 5)
-
-    # what these inputs need: a padded step leaves the state as it was, so
-    # each direction runs len_r steps of row r, each an (H) @ (H, 4H)
-    # product reading that step's 4H gates
-    steps = t_total * r if lengths is None else int(lengths.sum().item())
-    flops = 2 * steps * 2 * h * g
-    nbytes = 4 * (2 * steps * g + 2 * whf.numel() + r * 2 * h)
-    if lengths is not None:
-        nbytes += 4 * r
-    if with_outputs:
-        nbytes += 4 * r * t_total * 2 * h
-    bms, by = bound_ms(flops, nbytes)
     say(f"bilstm {name}", T=t_total, R=r, H=h, masked=lengths is not None, outputs=with_outputs,
         max_abs_err=f"{max(errs):.3e}", tol=TOL_LSTM, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{library_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
@@ -279,7 +349,11 @@ def phase_gat(model, app, mot, q, qlen):
     ]
 
 
-KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd)
+KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one, input_proj_both)
+# launches per fp32 forward and per bf16 forward (kernels 1-6)
+EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1)}
+# launches per train step: kernel 6 (no tanh) once in bf16
+TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0), "bfloat16": (0, 0, 3, 3, 0, 1)}
 
 
 def reset_counts():
@@ -288,7 +362,7 @@ def reset_counts():
 
 
 def counts():
-    """Launches of kernels 1-4; the eval path's are the first two."""
+    """Launches of kernels 1-6."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -299,7 +373,7 @@ def phase_eval(model, app, mot, q, qlen):
     out = model(app, mot, q, qlen)
     torch.cuda.synchronize()
     n_lstm, n_gat = counts()[:2]
-    check((n_lstm, n_gat) == (3, 2), f"one forward launched ({n_lstm}, {n_gat}) kernels, want (3, 2)")
+    check(counts() == EVAL_LAUNCHES["float32"], f"one forward launched {counts()} kernels 1-6, want (3, 2, 0, ...)")
     model.use_kernels = False
     ref = model(app, mot, q, qlen)
     torch.cuda.synchronize()
@@ -327,7 +401,7 @@ def phase_eval(model, app, mot, q, qlen):
         forward_ms=f"{ms:.3f}", qa_per_s=f"{BATCH / ms * 1e3:.1f}",
         plain_forward_ms=f"{plain_ms:.3f}", plain_qa_per_s=f"{BATCH / plain_ms * 1e3:.1f}")
     profile_run("profile", lambda: model(app, mot, q, qlen))
-    return ms
+    return ms, logits
 
 
 def profile_run(phase, fn, top=8):
@@ -356,8 +430,9 @@ def profile_run(phase, fn, top=8):
         print(f"  {us:10.0f} us {us / busy_us:6.1%} x{count:<4d} {name[:90]}", flush=True)
 
 
-def phase_serve(model):
-    """The main path: concurrent requests through the engine."""
+def phase_serve(model, tag="serve"):
+    """The main path: concurrent requests through the engine, in the
+    model's compute dtype; the launches of kernels 1, 2 and 6 counted."""
     rng = np.random.RandomState(1)
     vd = FLAGSHIP["vision_dim"]
     reqs = [
@@ -400,22 +475,22 @@ def phase_serve(model):
             t.join(timeout=300)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = counts()[:2]
+        launches = counts()
         stats = eng.stats()
     check(not errors, f"serve errors: {errors[:3]}")
     check(all(r is not None for r in results), "a request got no answer")
     check(stats["requests"] == SERVE_REQUESTS, f"engine counted {stats['requests']} requests")
-    check(launches == (3 * stats["batches"], 2 * stats["batches"]),
-          f"serve launched {launches} kernels over {stats['batches']} batches, want 3 and 2 per batch")
+    want = tuple(n * stats["batches"] for n in EVAL_LAUNCHES[model.compute_dtype])
+    check(launches == want, f"{tag} launched {launches} kernels 1-6 over {stats['batches']} batches, want {want}")
     for i, ((got_ids, got_scores), (ids, scores)) in enumerate(zip(results, direct)):
         check(got_ids.shape == (TOP_K,) and np.isfinite(got_scores).all(), f"request {i}: bad answer")
         check(np.allclose(got_scores, scores, atol=1e-6), f"request {i}: scores differ from direct")
         # the top-1 id may differ only where the top two scores tie
         check(got_ids[0] == ids[0] or scores[0] - scores[1] <= 1e-6, f"request {i}: other top-1")
-    say("serve", requests=stats["requests"], batches=stats["batches"],
+    say(tag, requests=stats["requests"], batches=stats["batches"],
         mean_batch=f"{stats['mean_batch']:.2f}", p50_ms=f"{stats['latency_ms_p50']:.2f}",
         p99_ms=f"{stats['latency_ms_p99']:.2f}", qa_per_s=f"{SERVE_REQUESTS / wall:.1f}",
-        launches=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}")
+        launches=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]}")
     return launches
 
 
@@ -455,13 +530,17 @@ def cudnn_train_ms(enc, x, lengths, with_outputs, gen):
     return fwd_ms, bwd_ms
 
 
-def train_lstm_case(name, enc, x, lengths, with_outputs, gen):
+def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
     """Kernels 3 and 4 against their plain versions on the projections of
     one BiLSTM of the model, timed beside cuDNN's training forward and
-    backward, with the bound of each from this case's shapes and lengths."""
+    backward, with the bound of each from this case's shapes and lengths;
+    with ``gates`` (bf16 xf, xb_rev) the bf16-gate variants, no yardstick."""
     fwd, bwd = enc._params(""), enc._params("_reverse")
-    xf = time_major_input_proj(x, fwd)
-    xb = time_major_input_proj(x, bwd, reverse=True)
+    if gates is None:
+        xf = time_major_input_proj(x, fwd)
+        xb = time_major_input_proj(x, bwd, reverse=True)
+    else:
+        xf, xb = gates
     whf, whb = fwd.w_hh.t().contiguous(), bwd.w_hh.t().contiguous()
     t_total, r, g = xf.shape
     h = g // 4
@@ -480,8 +559,8 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen):
     _, _, hprev, cprev = want
     del got, want
 
-    dfinal = torch.randn((r, 2 * h), generator=gen, device=x.device)
-    douts = torch.randn((r, t_total, 2 * h), generator=gen, device=x.device) if with_outputs else None
+    dfinal = torch.randn((r, 2 * h), generator=gen, device=xf.device)
+    douts = torch.randn((r, t_total, 2 * h), generator=gen, device=xf.device) if with_outputs else None
     bargs = (*fargs, hprev, cprev, dfinal, douts)
     got = bilstm_train_bwd(*bargs)
     torch.cuda.synchronize()
@@ -498,30 +577,33 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen):
     fwd_plain_ms = time_ms(lambda: bilstm_train_fwd_reference(*fargs, with_outputs=with_outputs), 3)
     bwd_ms = time_ms(lambda: bilstm_train_bwd(*bargs), 10)
     bwd_plain_ms = time_ms(lambda: bilstm_train_bwd_reference(*bargs), 3)
-    lib_fwd_ms, lib_bwd_ms = cudnn_train_ms(enc, x, lengths, with_outputs, gen)
+    lib_fwd_ms, lib_bwd_ms = cudnn_train_ms(enc, x, lengths, with_outputs, gen) if gates is None else (None, None)
 
     # what these inputs need: each direction runs len_r steps of row r; a
     # step of the forward is one (H) @ (H, 4H) product, of the backward two
     # (the gates again, and dgates @ W_hh^T). Inputs are counted at the
     # valid steps, outputs in full.
     steps = t_total * r if lengths is None else int(lengths.sum().item())
+    gb = xf.element_size()  # bytes per gate read
     len_bytes = 4 * r if lengths is not None else 0
     res_bytes = 4 * 2 * t_total * r * 2 * h  # hprev and cprev, (T, R, 2H) each
     f_flops = 2 * steps * 2 * h * g
-    f_bytes = 4 * (2 * steps * g + 2 * h * g + r * 2 * h) + len_bytes + res_bytes
+    f_bytes = gb * 2 * steps * g + 4 * (2 * h * g + r * 2 * h) + len_bytes + res_bytes
     if with_outputs:
         f_bytes += 4 * r * t_total * 2 * h
     b_flops = 2 * f_flops
-    b_bytes = 4 * (2 * steps * g + 2 * h * g + 2 * steps * 2 * h + r * 2 * h + 2 * t_total * r * g) + len_bytes
+    b_bytes = (gb * 2 * steps * g + 4 * (2 * h * g + 2 * steps * 2 * h + r * 2 * h + 2 * t_total * r * g)
+               + len_bytes)
     if with_outputs:
         b_bytes += 4 * r * t_total * 2 * h
     f_bound, f_by = bound_ms(f_flops, f_bytes)
     b_bound, b_by = bound_ms(b_flops, b_bytes)
-    say(f"bilstm_train {name}", T=t_total, R=r, H=h, masked=lengths is not None, outputs=with_outputs,
+    say(f"bilstm_train {name}", T=t_total, R=r, H=h, gates="bf16" if gates is not None else "fp32",
+        masked=lengths is not None, outputs=with_outputs,
         fwd_err=f"{fwd_err:.3e}", fwd_tol=TOL_LSTM, bwd_err=f"{bwd_err:.3e}", bwd_tol=f"{bwd_tol:.3e}",
-        fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_cudnn_ms=f"{lib_fwd_ms:.4f}",
+        fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_cudnn_ms=lib_fwd_ms,
         fwd_bound_ms=f"{f_bound:.4f}", fwd_bound_by=f_by,
-        bwd_ms=f"{bwd_ms:.4f}", bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_cudnn_ms=f"{lib_bwd_ms:.4f}",
+        bwd_ms=f"{bwd_ms:.4f}", bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_cudnn_ms=lib_bwd_ms,
         bwd_bound_ms=f"{b_bound:.4f}", bwd_bound_by=b_by)
     return (
         dict(shape=name, err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
@@ -557,18 +639,23 @@ def module_grad_norms(model):
             for name, mod in model.named_children()}
 
 
-def phase_train(batch):
-    """The flagship train step: warm-up steps, kernel path against plain
-    path, then timed steps on the kernel path (the training path whose
-    launches count) and one step under the profiler.
+def phase_train(batch, compute_dtype="float32"):
+    """The flagship train step in ``compute_dtype``: warm-up steps, then the
+    agreement (fp32: kernel path against plain path; bf16: the bf16 kernel
+    path against the fp32 kernel path, from the same weights), then timed
+    steps on the kernel path (the training path whose launches count) and
+    one step under the profiler.
 
     The agreement is checked after the warm-up: at the seeded init every
     bias is zero, so QueryAttn l2-normalizes exactly-zero vectors at the
     padded question positions and its bias gradient is rounding noise times
     1e12, in any implementation; two updates move the biases off zero.
     """
+    bf16 = compute_dtype == "bfloat16"
+    tag = "train bf16" if bf16 else "train"
+    tol_loss, tol_gnorm = (TOL_BF16_TRAIN_LOSS, TOL_BF16_TRAIN_GNORM) if bf16 else (TOL_TRAIN_LOSS, TOL_TRAIN_GNORM)
     lr = cfg_from_file(TRAIN_CFG).train.lr
-    model = build_model(seed=0, **FLAGSHIP)
+    model = build_model(seed=0, compute_dtype=compute_dtype, **FLAGSHIP)
     state = create_train_state(model, make_optimizer(lr, steps_per_epoch=100), seed=0)
     drops = [m for m in model.modules() if isinstance(m, Dropout)]
     rates = [m.p for m in drops]
@@ -576,29 +663,38 @@ def phase_train(batch):
         train_step(state, batch, alpha=ALPHA, beta=BETA)
 
     # agreement: one step's loss and gradients from the same weights,
-    # dropout off, kernel path then plain path
+    # dropout off, this path then the one it is held against
     for m in drops:
         m.p = 0.0
     reset_counts()
     metrics = forward_backward(state, batch, alpha=ALPHA, beta=BETA)
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == (0, 0, 3, 3), f"one train step launched {launches} kernels 1-4, want (0, 0, 3, 3)")
+    check(launches == TRAIN_LAUNCHES[compute_dtype],
+          f"one {tag} step launched {launches} kernels 1-6, want {TRAIN_LAUNCHES[compute_dtype]}")
     loss_k, gn_k = metrics["loss"].item(), module_grad_norms(model)
-    model.use_kernels = False
+    if bf16:
+        model.compute_dtype = "float32"
+    else:
+        model.use_kernels = False
     metrics = forward_backward(state, batch, alpha=ALPHA, beta=BETA)
+    torch.cuda.synchronize()
+    other = counts()
     loss_p, gn_p = metrics["loss"].item(), module_grad_norms(model)
-    model.use_kernels = True
-    check(counts() == launches, f"the plain path launched kernels: {counts()} after {launches}")
+    model.use_kernels, model.compute_dtype = True, compute_dtype
+    want_other = tuple(a + b for a, b in zip(launches, TRAIN_LAUNCHES["float32"] if bf16 else (0,) * 6))
+    check(other == want_other, f"the reference path launched {other} kernels after {launches}, want {want_other}")
     check(np.isfinite(loss_k) and np.isfinite(loss_p), f"non-finite loss {loss_k} / {loss_p}")
     rel_loss = abs(loss_k - loss_p) / max(abs(loss_p), 1e-9)
     rel_gn = {k: abs(gn_k[k] - gn_p[k]) / max(gn_p[k], 1e-12) for k in gn_p}
-    check(rel_loss <= TOL_TRAIN_LOSS, f"train loss kernel {loss_k} vs plain {loss_p}: rel {rel_loss:.2e}")
-    bad = {k: f"{v:.2e}" for k, v in rel_gn.items() if not v <= TOL_TRAIN_GNORM}
-    check(not bad, f"per-module gradient norms off by more than {TOL_TRAIN_GNORM}: {bad}")
+    against = "fp32 kernel path" if bf16 else "plain path"
+    check(rel_loss <= tol_loss, f"{tag} loss {loss_k} vs {against} {loss_p}: rel {rel_loss:.2e}")
+    bad = {k: f"{v:.2e}" for k, v in rel_gn.items() if not v <= tol_gnorm}
+    check(not bad, f"{tag}: per-module gradient norms off the {against} by more than {tol_gnorm}: {bad}")
     worst = max(rel_gn, key=rel_gn.get)
-    say("train agreement", after_steps=WARMUP_STEPS, loss_kernel=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}",
-        rel_loss=f"{rel_loss:.2e}", worst_module=worst, worst_gnorm_rel=f"{rel_gn[worst]:.2e}",
+    say(f"{tag} agreement", after_steps=WARMUP_STEPS, against=against.replace(" ", "_"),
+        loss_kernel=f"{loss_k:.6f}", loss_against=f"{loss_p:.6f}", rel_loss=f"{rel_loss:.2e}",
+        tol_loss=tol_loss, worst_module=worst, worst_gnorm_rel=f"{rel_gn[worst]:.2e}", tol_gnorm=tol_gnorm,
         gnorm_rel=",".join(f"{k}:{v:.1e}" for k, v in sorted(rel_gn.items())))
     model.zero_grad(set_to_none=True)
 
@@ -618,15 +714,161 @@ def phase_train(batch):
     ms = start.elapsed_time(end) / TIMED_STEPS
     losses = [v.item() for v in losses]
     check(all(np.isfinite(losses)), f"non-finite train losses {losses}")
-    check(launches == (0, 0, 3 * TIMED_STEPS, 3 * TIMED_STEPS),
-          f"{TIMED_STEPS} train steps launched {launches} kernels 1-4, want 3 + 3 per step")
-    say("train", batch=BATCH, valid=BATCH - TRAIN_PAD, lr=lr, step_ms=f"{ms:.3f}",
+    want = tuple(n * TIMED_STEPS for n in TRAIN_LAUNCHES[compute_dtype])
+    check(launches == want, f"{TIMED_STEPS} {tag} steps launched {launches} kernels 1-6, want {want}")
+    say(tag, batch=BATCH, valid=BATCH - TRAIN_PAD, lr=lr, step_ms=f"{ms:.3f}",
         qa_per_s=f"{BATCH / ms * 1e3:.1f}", losses=",".join(f"{v:.5f}" for v in losses),
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=f"bilstm_train_fwd:{launches[2]},bilstm_train_bwd:{launches[3]},"
-                 f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}")
-    profile_run("train profile", lambda: train_step(state, batch, alpha=ALPHA, beta=BETA))
+                 f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]}")
+    profile_run(f"{tag} profile", lambda: train_step(state, batch, alpha=ALPHA, beta=BETA))
     return launches
+
+
+def proj_case(rows, gen):
+    """Kernels 5 and 6 against their plain versions on one set of the
+    probe's inputs at ``rows`` = R, timed beside the probe's library
+    yardsticks v0 (two products) and v1 (one merged product), with the bound
+    at the bf16 tensor-core peak. Returns the rows of kernels 5 and 6."""
+    x, w_f, b_f, w_b, b_b = proj_probe.make_inputs(rows, gen)
+    x16 = torch.tanh(x).to(BF16)
+    forms = {
+        "k5_forward": (lambda: input_proj_one(x, w_f, b_f), lambda: input_proj_one_reference(x, w_f, b_f)),
+        "k5_reversed": (lambda: input_proj_one(x, w_b, b_b, reverse=True),
+                        lambda: input_proj_one_reference(x, w_b, b_b, reverse=True)),
+        "k6_tanh": (lambda: input_proj_both(x, w_f, b_f, w_b, b_b),
+                    lambda: input_proj_both_reference(x, w_f, b_f, w_b, b_b)),
+        "k6_bf16_x": (lambda: input_proj_both(x16, w_f, b_f, w_b, b_b, fuse_tanh=False),
+                      lambda: input_proj_both_reference(x16, w_f, b_f, w_b, b_b, fuse_tanh=False)),
+    }
+    r, t, d = x.shape
+    g = w_f.shape[0]
+    res = {}
+    for name, (kernel, plain) in forms.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        errs = [check_bf16(f"proj {name} R={rows}", a, b, TOL_BF16_PROJ_ATOL) for a, b in zip(got, want)]
+        del got, want
+        ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 3)
+        ndir = 1 if name.startswith("k5") else 2
+        flops = 2 * r * t * d * g * ndir
+        x_bytes = x16.numel() * 2 if name == "k6_bf16_x" else x.numel() * 4
+        nbytes = x_bytes + ndir * (g * d * 2 + g * 4 + t * r * g * 2)  # x, W in bf16, bias, out
+        bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        res[name] = dict(err=max(e[0] for e in errs), steps=max(e[1] for e in errs),
+                         share=max(e[2] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=bms, by=by,
+                         flops=flops, bytes=nbytes)
+    lib = proj_probe.variants(x, w_f, b_f, w_b, b_b)
+    v0_ms, v1_ms = time_ms(lib["v0_library"], 10), time_ms(lib["v1_merged"], 10)
+    for name, c in res.items():
+        say(f"proj {name}", R=rows, T=t, D=d, G=g, max_abs_err=f"{c['err']:.3e}",
+            max_bf16_steps=f"{c['steps']:.2f}", share_differ=f"{c['share']:.2e}",
+            tol=f"1 bf16 step + {TOL_BF16_PROJ_ATOL}", ms=f"{c['ms']:.4f}", plain_ms=f"{c['plain_ms']:.4f}",
+            library_v0_ms=f"{v0_ms:.4f}", library_v1_ms=f"{v1_ms:.4f}", bound_ms=f"{c['bound_ms']:.4f}",
+            bound_by=c["by"])
+    # kernel 5's row: its two launches of the probe's v2 (forward, reversed);
+    # kernel 6's: the fused form of the bf16 forward, v4's form beside it
+    k5 = dict(shape=f"R{rows}", err=max(res["k5_forward"]["err"], res["k5_reversed"]["err"]),
+              **{k: res["k5_forward"][k] + res["k5_reversed"][k] for k in ("ms", "plain_ms", "flops", "bytes")},
+              library_ms=v0_ms)
+    k6 = dict(shape=f"R{rows}", err=max(res["k6_tanh"]["err"], res["k6_bf16_x"]["err"]),
+              **{k: res["k6_tanh"][k] for k in ("ms", "plain_ms", "flops", "bytes")}, library_ms=v0_ms,
+              library_v1_ms=v1_ms, bf16_x_ms=res["k6_bf16_x"]["ms"], bf16_x_bound_ms=res["k6_bf16_x"]["bound_ms"])
+    for c in (k5, k6):
+        c["bound_ms"] = bound_ms(c["flops"], c["bytes"], PEAK_BF16_FLOPS)[0]
+    return k5, k6
+
+
+@torch.no_grad()
+def phase_proj():
+    """Kernels 5 and 6 at the projection's two R, then the port's probe
+    (v0-v4, one line) and one call of its v2, whose launches of kernel 5
+    are counted: the probe is kernel 5's path."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [proj_case(rows, gen) for rows in PROJ_ROWS]
+    torch.cuda.empty_cache()
+    probe = proj_probe.run(PROJ_ROWS[0], iters=20)
+    print("[proj_probe] " + json.dumps(probe), flush=True)
+    v2 = proj_probe.variants(*proj_probe.make_inputs(PROJ_ROWS[0], gen))["v2_kernel5"]
+    reset_counts()
+    v2()
+    torch.cuda.synchronize()
+    n5 = counts()[4]
+    check(n5 == 2, f"the probe's v2 launched kernel 5 {n5} times, want 2")
+    torch.cuda.empty_cache()
+    return [c[0] for c in cases], [c[1] for c in cases], n5
+
+
+@torch.no_grad()
+def phase_bilstm_bf16(model, app, q, qlen, gen):
+    """The bf16-gate variants at the shapes of the bf16 paths: kernel 1 at
+    the three BiLSTMs of the bf16 forward (the appearance gates from kernel
+    6 with tanh fused, the question gates streamed and rounded, as
+    ``ops/lstm.py`` makes them), kernels 3 and 4 at the appearance shape of
+    the bf16 train step (gates from kernel 6 without tanh)."""
+    qe, ae = model.linguistic_input_unit, model.visual_appearance_input_unit.encoder
+    words = torch.tanh(qe.encoder_embed(q))
+    b, c, f, d = app.shape
+    clips = app.reshape(b * c, f, d)
+    fwd, bwd = ae._params(""), ae._params("_reverse")
+    bias = lambda p: p.b_ih + p.b_hh
+    app_gates = input_proj_both(clips, fwd.w_ih, bias(fwd), bwd.w_ih, bias(bwd))
+
+    def question_gates(enc):
+        fw, bw = enc._params(""), enc._params("_reverse")
+        return (time_major_input_proj(words, fw, stream_dtype=BF16).to(BF16),
+                time_major_input_proj(words, bw, reverse=True, stream_dtype=BF16).to(BF16))
+
+    eval_cases = [
+        lstm_case("appearance_bf16", ae, None, None, False, gates=app_gates),
+        lstm_case("question_outputs_bf16", qe.concatRNN.rnn, None, qlen, True,
+                  gates=question_gates(qe.concatRNN.rnn)),
+        lstm_case("question_final_bf16", qe.encoder, None, qlen, False, gates=question_gates(qe.encoder)),
+    ]
+    del app_gates
+    x16 = torch.tanh(clips).to(BF16)
+    train_gates = input_proj_both(x16, fwd.w_ih, bias(fwd), bwd.w_ih, bias(bwd), fuse_tanh=False)
+    del x16
+    fwd_case, bwd_case = train_lstm_case("appearance_bf16", ae, None, None, False, gen, gates=train_gates)
+    del train_gates
+    torch.cuda.empty_cache()
+    return eval_cases, fwd_case, bwd_case
+
+
+@torch.no_grad()
+def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits):
+    """The flagship forward in bf16, kernel routing, against the fp32 kernel
+    path's logits (``fp32_logits``, from the same weights and inputs)."""
+    model.use_kernels, model.compute_dtype = True, "bfloat16"
+    reset_counts()
+    out = model(app, mot, q, qlen)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == EVAL_LAUNCHES["bfloat16"],
+          f"one bf16 forward launched {launches} kernels 1-6, want {EVAL_LAUNCHES['bfloat16']}")
+    logits = out.logits
+    check(logits.dtype == torch.float32 and tuple(logits.shape) == (BATCH, FLAGSHIP["num_answers"]),
+          f"bf16 logits {logits.dtype} {tuple(logits.shape)}")
+    for field in out._fields:
+        check(torch.isfinite(getattr(out, field)).all().item(), f"bf16: non-finite {field}")
+    scale = fp32_logits.abs().max().item()
+    err = max_err(logits, fp32_logits)
+    flips = logits.argmax(-1) != fp32_logits.argmax(-1)
+    top2 = fp32_logits.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    unexplained = int((flips & (margin > 2 * err)).sum().item())
+    agree = 1.0 - flips.float().mean().item()
+    check(err <= TOL_BF16_LOGITS * scale, f"bf16 logits max abs err {err:.3e} > {TOL_BF16_LOGITS} * {scale:.3e}")
+    check(unexplained == 0, f"{unexplained} argmax flips on rows whose fp32 top-2 margin exceeds 2 x {err:.3e}")
+    ms = time_ms(lambda: model(app, mot, q, qlen), 5)
+    say("eval bf16", batch=BATCH, logits_max_abs_err=f"{err:.3e}", rel_to_max_logit=f"{err / scale:.3e}",
+        tol=f"{TOL_BF16_LOGITS}*max|logit|", max_abs_logit=f"{scale:.3e}", argmax_agreement=f"{agree:.4f}",
+        flips=int(flips.sum().item()),
+        launches_per_forward=f"input_proj_both:{launches[5]},bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}",
+        forward_ms=f"{ms:.3f}", qa_per_s=f"{BATCH / ms * 1e3:.1f}")
+    profile_run("eval bf16 profile", lambda: model(app, mot, q, qlen))
+    return ms
 
 
 def train_batch(gen):
@@ -639,15 +881,21 @@ def train_batch(gen):
     return app, mot, q, qlen, answers, valid
 
 
-def kernel_entry(name, source, replaces, launches, cases, per, library):
-    """One row of the kernels line: the sums over the cases of one step."""
+def kernel_entry(name, source, replaces, launches, cases, per, library, bf16_cases=(), peak=PEAK_FP32_FLOPS,
+                 **extra):
+    """One row of the kernels line: the sums over the cases of one step or
+    forward; ``bf16_cases`` (the bf16-gate variants on the bf16 paths) are
+    listed beside them in ``shapes`` and in the error, not in the sums."""
     total = lambda key: sum(c[key] for c in cases)
-    bms, by = bound_ms(total("flops"), total("bytes"))
+    bms, by = bound_ms(total("flops"), total("bytes"), peak)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") if library else ("ms", "plain_ms", "bound_ms")
+    shapes = {c["shape"]: {k: c[k] for k in keys} for c in cases}
+    shapes.update({c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms") if c.get(k) is not None}
+                   for c in bf16_cases})
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                max_abs_err=max(c["err"] for c in cases), ms=total("ms"), plain_ms=total("plain_ms"),
-                bound_ms=bms, bound_by=by, library_ms=total("library_ms") if library else None,
-                per=per, shapes={c["shape"]: {k: c[k] for k in keys} for c in cases})
+                max_abs_err=max(c["err"] for c in (*cases, *bf16_cases)), ms=total("ms"),
+                plain_ms=total("plain_ms"), bound_ms=bms, bound_by=by,
+                library_ms=total("library_ms") if library else None, per=per, shapes=shapes, **extra)
 
 
 def main():
@@ -658,36 +906,71 @@ def main():
     app, mot, q, qlen = flagship_inputs(BATCH, gen)
     lstm_cases = phase_bilstm(model, app, q, qlen)
     gat_cases = phase_gat(model, app, mot, q, qlen)
-    phase_eval(model, app, mot, q, qlen)
+    _, fp32_logits = phase_eval(model, app, mot, q, qlen)
+    lstm_bf16, fwd_bf16, bwd_bf16 = phase_bilstm_bf16(model, app, q, qlen,
+                                                     torch.Generator(device="cuda").manual_seed(4))
+    phase_eval_bf16(model, app, mot, q, qlen, fp32_logits)
+    model.compute_dtype = "float32"
     del app, mot
     torch.cuda.empty_cache()
-    n_lstm, n_gat = phase_serve(model)
+    serve_launches = phase_serve(model)
+    model.compute_dtype = "bfloat16"
+    serve_bf16_launches = phase_serve(model, tag="serve bf16")
+    model.compute_dtype = "float32"
 
     batch = train_batch(torch.Generator(device="cuda").manual_seed(1))
     fwd_cases, bwd_cases = phase_bilstm_train(model, batch[0], batch[2], batch[3])
     del model
     torch.cuda.empty_cache()
     train_launches = phase_train(batch)
+    torch.cuda.empty_cache()
+    train_bf16_launches = phase_train(batch, "bfloat16")
+    del batch
+    torch.cuda.empty_cache()
+    k5_cases, k6_cases, n5 = phase_proj()
 
     # kernel 1 once at each of its three shapes per flagship forward, kernel
     # 2 once per stream; kernels 3 and 4 once at each of the three shapes
-    # per train step. Each row sums its cases' measurements.
+    # per train step. Each row sums its cases' measurements over one fp32
+    # forward or step; the bf16-gate shapes are listed beside them. Kernels
+    # 5 and 6 are rows per call at R = 4096 (batch 256), R = 512 (batch 32)
+    # listed beside it, bound at the bf16 tensor-core peak.
     eval_shapes = "appearance + question_outputs + question_final"
     kernels = [
         kernel_entry("bilstm_recurrence", "dualvgr_tpu_torch/csrc/bilstm_recurrence.cu",
-                     "dualvgr_tpu/ops/lstm_pallas.py:107", n_lstm, lstm_cases,
-                     f"one flagship forward (batch 256): {eval_shapes}", library=True),
+                     "dualvgr_tpu/ops/lstm_pallas.py:107", serve_launches[0], lstm_cases,
+                     f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
+                     "bf16-gate shapes", library=True, bf16_cases=lstm_bf16,
+                     launches_bf16=serve_bf16_launches[0]),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
-                     "dualvgr_tpu/ops/gat_pallas.py:105", n_gat, gat_cases,
-                     "one flagship forward (batch 256): appearance + motion streams", library=False),
+                     "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
+                     "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
+                     "forward too)", library=False, launches_bf16=serve_bf16_launches[1]),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "
-                     "training-mode forward, input projection included", library=True),
+                     "training-mode forward, input projection included; appearance_bf16: the bf16 "
+                     "step's bf16 gates", library=True, bf16_cases=[fwd_bf16],
+                     launches_bf16=train_bf16_launches[2]),
         kernel_entry("bilstm_train_bwd", "dualvgr_tpu_torch/csrc/bilstm_train_bwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:239", train_launches[3], bwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN backward, "
-                     "dX, dW_ih, dW_hh and the biases' gradients included", library=True),
+                     "dX, dW_ih, dW_hh and the biases' gradients included; appearance_bf16: the bf16 "
+                     "step's bf16 gates", library=True, bf16_cases=[bwd_bf16],
+                     launches_bf16=train_bf16_launches[3]),
+        kernel_entry("input_proj_one", "dualvgr_tpu_torch/csrc/input_proj.cu",
+                     "benchmarks/proj_probe.py:68", n5, k5_cases[:1],
+                     "two launches (forward, time-reversed) at R = 4096, as the probe's v2; R512 at batch "
+                     "32; library: the probe's v0 (tanh, two cuBLAS bf16 products with fp32 output, bias, "
+                     "cast, time-major copy, flip)", library=True, bf16_cases=k5_cases[1:],
+                     peak=PEAK_BF16_FLOPS),
+        kernel_entry("input_proj_both", "dualvgr_tpu_torch/csrc/input_proj.cu",
+                     "benchmarks/proj_probe.py:112", serve_bf16_launches[5], k6_cases[:1],
+                     "one launch, tanh fused, at R = 4096 (the bf16 forward at batch 256); R512 at batch 32; "
+                     "library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: the form without tanh (the "
+                     "bf16 train step's)", library=True, bf16_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
+                     launches_train_bf16=train_bf16_launches[5], library_v1_ms=k6_cases[0]["library_v1_ms"],
+                     bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

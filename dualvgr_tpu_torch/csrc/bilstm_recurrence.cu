@@ -1,11 +1,16 @@
-// Bidirectional LSTM recurrence over precomputed input projections, fp32.
+// Bidirectional LSTM recurrence over precomputed input projections, fp32
+// arithmetic over fp32 or bf16 gates.
 //
 // Replaces the TPU kernel dualvgr_tpu/ops/lstm_pallas.py::bilstm_pallas
 // (kernel body `_kernel`). Same contract: xf (T, R, 4H) forward gates,
 // xb (T, R, 4H) backward gates already time-reversed, W_hh (H, 4H) per
 // direction, gate order i, f, g, o, optional packed lengths, optional
 // zero-masked per-step outputs (R, T, 2H) and the final state (R, 2H) =
-// [h_fwd at len-1, h_bwd at t=0].
+// [h_fwd at len-1, h_bwd at t=0]. The gates are fp32, or bf16 under
+// compute_dtype: bfloat16 (lstm_pallas.py:71-72): they are read as bf16 and
+// widened, the recurrence runs in fp32, and final and outs are written in
+// the gates' dtype (lstm_pallas.py:155-158), rounded to nearest even. W_hh
+// and the state are fp32 in both.
 //
 // Design. On the TPU the grid is (row_blocks, T) and h/c live in VMEM
 // scratch across the sequential T axis. Here each row's state depends only
@@ -28,6 +33,7 @@
 // SM count at launch (below). Rows past R (the ragged edge) run on zeros
 // and are never stored; the TPU pads them instead.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,14 +48,21 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+__device__ __forceinline__ float gate_at(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float gate_at(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(__ldg(p + i));
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // kTy row groups of kRowsPerThread rows: a block owns kTy * kRowsPerThread
 // rows and runs kTx * kTy threads.
-template <int kTy, int kRowsPerThread>
+template <int kTy, int kRowsPerThread, typename TG>
 __global__ void __launch_bounds__(kTx * kTy, 1)
-bilstm_recurrence_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
+bilstm_recurrence_kernel(const TG* __restrict__ xf, const TG* __restrict__ xb,
                          const float* __restrict__ whf, const float* __restrict__ whb,
-                         const int* __restrict__ lengths, float* __restrict__ final_out,
-                         float* __restrict__ outs, int T, int R, int H) {
+                         const int* __restrict__ lengths, TG* __restrict__ final_out,
+                         TG* __restrict__ outs, int T, int R, int H) {
   constexpr int kThreads = kTx * kTy;
   constexpr int kRows = kTy * kRowsPerThread;
   extern __shared__ float4 smem4[];
@@ -57,7 +70,7 @@ bilstm_recurrence_kernel(const float* __restrict__ xf, const float* __restrict__
   float* sc = sh + kRows * H;                   // [kRows][H] c state
 
   const int dir = blockIdx.y;
-  const float* __restrict__ x = dir ? xb : xf;
+  const TG* __restrict__ x = dir ? xb : xf;
   const float* __restrict__ w = dir ? whb : whf;
   const int G = 4 * H;
   const int tx = threadIdx.x % kTx;
@@ -90,7 +103,7 @@ bilstm_recurrence_kernel(const float* __restrict__ xf, const float* __restrict__
       for (int u = 0; u < kUnitsPerThread; ++u)
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          acc[r][u][g] = row[r] < R ? __ldg(x + base + g * H + col[u]) : 0.f;
+          acc[r][u][g] = row[r] < R ? gate_at(x, base + g * H + col[u]) : 0.f;
     }
 
     // gates += h_{t-1} @ W_hh
@@ -139,7 +152,7 @@ bilstm_recurrence_kernel(const float* __restrict__ xf, const float* __restrict__
         if (outs != nullptr && row[r] < R) {
           // backward half written back in original time order
           const int tt = dir ? T - 1 - t : t;
-          outs[((size_t)row[r] * T + tt) * 2 * H + dir * H + unit[u]] = valid ? h : 0.f;
+          store_as(outs + ((size_t)row[r] * T + tt) * 2 * H + dir * H + unit[u], valid ? h : 0.f);
         }
       }
     }
@@ -152,18 +165,18 @@ bilstm_recurrence_kernel(const float* __restrict__ xf, const float* __restrict__
 #pragma unroll
     for (int u = 0; u < kUnitsPerThread; ++u) {
       if (unit[u] >= H) continue;
-      final_out[(size_t)row[r] * 2 * H + dir * H + unit[u]] =
-          sh[(ty * kRowsPerThread + r) * H + unit[u]];
+      store_as(final_out + (size_t)row[r] * 2 * H + dir * H + unit[u],
+               sh[(ty * kRowsPerThread + r) * H + unit[u]]);
     }
   }
 }
 
-template <int kTy, int kRowsPerThread>
-cudaError_t launch(const float* xf, const float* xb, const float* whf, const float* whb,
-                   const int* lengths, float* final_out, float* outs, int T, int R, int H,
+template <int kTy, int kRowsPerThread, typename TG>
+cudaError_t launch(const TG* xf, const TG* xb, const float* whf, const float* whb,
+                   const int* lengths, TG* final_out, TG* outs, int T, int R, int H,
                    cudaStream_t stream) {
   constexpr int kRows = kTy * kRowsPerThread;
-  auto* kernel = bilstm_recurrence_kernel<kTy, kRowsPerThread>;
+  auto* kernel = bilstm_recurrence_kernel<kTy, kRowsPerThread, TG>;
   const int smem = 2 * kRows * H * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -172,10 +185,27 @@ cudaError_t launch(const float* xf, const float* xb, const float* whf, const flo
   return cudaGetLastError();
 }
 
+template <typename TG>
+cudaError_t launch_tiles(const void* xf, const void* xb, const void* whf, const void* whb,
+                         const void* lengths, void* final_out, void* outs, int T, int R, int H,
+                         int sms, void* stream) {
+  const auto* a = static_cast<const TG*>(xf);
+  const auto* b = static_cast<const TG*>(xb);
+  const auto* wf = static_cast<const float*>(whf);
+  const auto* wb = static_cast<const float*>(whb);
+  const auto* len = static_cast<const int*>(lengths);
+  auto* fin = static_cast<TG*>(final_out);
+  auto* o = static_cast<TG*>(outs);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (2 * ((R + 15) / 16) >= sms) return launch<2, 8>(a, b, wf, wb, len, fin, o, T, R, H, st);
+  return launch<4, 1>(a, b, wf, wb, len, fin, o, T, R, H, st);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. `lengths` (int32, R) and `outs` may be null.
-// Returns the cudaError_t of the launch (0 = cudaSuccess).
+// gate_dtype: 0 for fp32 gates, final and outs; 1 for bf16. Returns the
+// cudaError_t of the launch (0 = cudaSuccess).
 //
 // Tile choice. 16-row tiles of 8 rows per thread feed every W value loaded
 // to 8 FMAs; they are used when they give at least one block per SM (the
@@ -184,22 +214,17 @@ cudaError_t launch(const float* xf, const float* xb, const float* whf, const flo
 // the recurrence over 4x as many SMs.
 extern "C" int bilstm_recurrence_launch(const void* xf, const void* xb, const void* whf,
                                         const void* whb, const void* lengths, void* final_out,
-                                        void* outs, int T, int R, int H, void* stream) {
-  if (T <= 0 || R <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0)
+                                        void* outs, int T, int R, int H, int gate_dtype,
+                                        void* stream) {
+  if (T <= 0 || R <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || (gate_dtype != 0 && gate_dtype != 1))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const auto* a = static_cast<const float*>(xf);
-  const auto* b = static_cast<const float*>(xb);
-  const auto* wf = static_cast<const float*>(whf);
-  const auto* wb = static_cast<const float*>(whb);
-  const auto* len = static_cast<const int*>(lengths);
-  auto* fin = static_cast<float*>(final_out);
-  auto* o = static_cast<float*>(outs);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (2 * ((R + 15) / 16) >= sms) err = launch<2, 8>(a, b, wf, wb, len, fin, o, T, R, H, st);
-  else err = launch<4, 1>(a, b, wf, wb, len, fin, o, T, R, H, st);
+  if (gate_dtype == 1)
+    err = launch_tiles<__nv_bfloat16>(xf, xb, whf, whb, lengths, final_out, outs, T, R, H, sms, stream);
+  else
+    err = launch_tiles<float>(xf, xb, whf, whb, lengths, final_out, outs, T, R, H, sms, stream);
   return (int)err;
 }

@@ -1,4 +1,5 @@
-// Backward of the bidirectional LSTM recurrence, fp32.
+// Backward of the bidirectional LSTM recurrence: fp32 arithmetic over fp32 or
+// bf16 gates.
 //
 // Replaces the TPU kernel dualvgr_tpu/ops/lstm_pallas_train.py::_run_bwd_m
 // (kernel body `_bwd_kernel_m`). Inputs: the forward's gates xf, xb (T, R, 4H,
@@ -10,7 +11,9 @@
 // it; null for a final-only forward, and then never read). Output: dxf, dxb
 // (T, R, 4H) in kernel time, the gradients of the gate inputs, which are
 // the dgates (i, f, g, o). dW_hh = sum_t h_{t-1}^T dgates is left to one
-// plain product outside, as the JAX package leaves it to XLA.
+// plain product outside, as the JAX package leaves it to XLA. The gates may
+// be bf16 (the appearance op under compute_dtype: bfloat16), read as bf16
+// and widened; the dgates are fp32 either way, as in the TPU kernel.
 //
 // Masked steps. With m the step's mask, h_t = m h~_t + (1 - m) h_{t-1} and
 // out_t = m h~_t, so dh~ = m (dh + m dout), dh_{t-1} gains (1 - m)(dh + m dout),
@@ -49,6 +52,7 @@
 // 16 x 1536 x 4 B = 98 KB of shared memory, so the dynamic shared memory
 // attribute is raised above 48 KB.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,9 +67,14 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-template <int kTy, int kRowsPerThread, int kSplit, int kRows2, int kUnits2, int kUnroll2>
+__device__ __forceinline__ float gate_at(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float gate_at(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(__ldg(p + i));
+}
+
+template <int kTy, int kRowsPerThread, int kSplit, int kRows2, int kUnits2, int kUnroll2, typename TG>
 __global__ void __launch_bounds__(kTx * kTy, 1)
-bilstm_train_bwd_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
+bilstm_train_bwd_kernel(const TG* __restrict__ xf, const TG* __restrict__ xb,
                         const float* __restrict__ whf, const float* __restrict__ whb,
                         const float* __restrict__ whf_t, const float* __restrict__ whb_t,
                         const int* __restrict__ lengths, const float* __restrict__ hprev,
@@ -81,7 +90,7 @@ bilstm_train_bwd_kernel(const float* __restrict__ xf, const float* __restrict__ 
   float* sdg = sdc + kRows * H;                  // [kRows][4H] dgates of this step
 
   const int dir = blockIdx.y;
-  const float* __restrict__ x = dir ? xb : xf;
+  const TG* __restrict__ x = dir ? xb : xf;
   const float* __restrict__ w = dir ? whb : whf;
   const float* __restrict__ wt = dir ? whb_t : whf_t;
   float* __restrict__ dx = dir ? dxb : dxf;
@@ -126,7 +135,7 @@ bilstm_train_bwd_kernel(const float* __restrict__ xf, const float* __restrict__ 
       for (int u = 0; u < kUnitsPerThread; ++u)
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          acc[r][u][g] = row[r] < R ? __ldg(x + base + g * H + col[u]) : 0.f;
+          acc[r][u][g] = row[r] < R ? gate_at(x, base + g * H + col[u]) : 0.f;
     }
 #pragma unroll 1
     for (int k = 0; k < H; k += 4) {
@@ -239,14 +248,14 @@ bilstm_train_bwd_kernel(const float* __restrict__ xf, const float* __restrict__ 
   }
 }
 
-template <int kTy, int kRowsPerThread, int kSplit, int kRows2, int kUnits2, int kUnroll2>
-cudaError_t launch(const float* xf, const float* xb, const float* whf, const float* whb,
+template <int kTy, int kRowsPerThread, int kSplit, int kRows2, int kUnits2, int kUnroll2, typename TG>
+cudaError_t launch(const TG* xf, const TG* xb, const float* whf, const float* whb,
                    const float* whf_t, const float* whb_t, const int* lengths,
                    const float* hprev, const float* cprev, const float* dfinal,
                    const float* douts, float* dxf, float* dxb, int T, int R, int H,
                    cudaStream_t stream) {
   constexpr int kRows = kTy * kRowsPerThread;
-  auto* kernel = bilstm_train_bwd_kernel<kTy, kRowsPerThread, kSplit, kRows2, kUnits2, kUnroll2>;
+  auto* kernel = bilstm_train_bwd_kernel<kTy, kRowsPerThread, kSplit, kRows2, kUnits2, kUnroll2, TG>;
   const int smem = 7 * kRows * H * (int)sizeof(float);  // h, dh, dc, and 4H of dgates
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -256,29 +265,14 @@ cudaError_t launch(const float* xf, const float* xb, const float* whf, const flo
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry for ctypes. `lengths` (int32, R) and `douts` may be null.
-// Returns the cudaError_t of the launch (0 = cudaSuccess). Tile choice as in
-// the forward kernels: 16-row tiles of 8 rows per thread where they give
-// every SM a block (the appearance encoder, 172 KB of shared memory at
-// H = 384), else 4-row tiles of one row per thread (the question encoders).
-// The dh product splits 4H over 4 groups in both: 8 rows x 12 units per
-// thread in the 16-row tile; 4 rows x 3 units in the 4-row tile, its loop
-// unrolled by 4 to keep several k-steps' loads in flight.
-extern "C" int bilstm_train_bwd_launch(const void* xf, const void* xb, const void* whf,
-                                       const void* whb, const void* whf_t, const void* whb_t,
-                                       const void* lengths, const void* hprev, const void* cprev,
-                                       const void* dfinal, const void* douts, void* dxf,
-                                       void* dxb, int T, int R, int H, void* stream) {
-  if (T <= 0 || R <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const auto* a = static_cast<const float*>(xf);
-  const auto* b = static_cast<const float*>(xb);
+template <typename TG>
+cudaError_t launch_tiles(const void* xf, const void* xb, const void* whf, const void* whb,
+                         const void* whf_t, const void* whb_t, const void* lengths,
+                         const void* hprev, const void* cprev, const void* dfinal,
+                         const void* douts, void* dxf, void* dxb, int T, int R, int H, int sms,
+                         void* stream) {
+  const auto* a = static_cast<const TG*>(xf);
+  const auto* b = static_cast<const TG*>(xb);
   const auto* wf = static_cast<const float*>(whf);
   const auto* wb = static_cast<const float*>(whb);
   const auto* wtf = static_cast<const float*>(whf_t);
@@ -292,8 +286,38 @@ extern "C" int bilstm_train_bwd_launch(const void* xf, const void* xb, const voi
   auto* gb = static_cast<float*>(dxb);
   const auto st = static_cast<cudaStream_t>(stream);
   if (2 * ((R + 15) / 16) >= sms)
-    err = launch<2, 8, 4, 8, 12, 1>(a, b, wf, wb, wtf, wtb, len, hp, cp, dfin, dou, gf, gb, T, R, H, st);
+    return launch<2, 8, 4, 8, 12, 1>(a, b, wf, wb, wtf, wtb, len, hp, cp, dfin, dou, gf, gb, T, R, H, st);
+  return launch<4, 1, 4, 4, 3, 4>(a, b, wf, wb, wtf, wtb, len, hp, cp, dfin, dou, gf, gb, T, R, H, st);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. `lengths` (int32, R) and `douts` may be null.
+// gate_dtype: 0 for fp32 gates, 1 for bf16. Returns the cudaError_t of the
+// launch (0 = cudaSuccess). Tile choice as in
+// the forward kernels: 16-row tiles of 8 rows per thread where they give
+// every SM a block (the appearance encoder, 172 KB of shared memory at
+// H = 384), else 4-row tiles of one row per thread (the question encoders).
+// The dh product splits 4H over 4 groups in both: 8 rows x 12 units per
+// thread in the 16-row tile; 4 rows x 3 units in the 4-row tile, its loop
+// unrolled by 4 to keep several k-steps' loads in flight.
+extern "C" int bilstm_train_bwd_launch(const void* xf, const void* xb, const void* whf,
+                                       const void* whb, const void* whf_t, const void* whb_t,
+                                       const void* lengths, const void* hprev, const void* cprev,
+                                       const void* dfinal, const void* douts, void* dxf,
+                                       void* dxb, int T, int R, int H, int gate_dtype,
+                                       void* stream) {
+  if (T <= 0 || R <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || (gate_dtype != 0 && gate_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (gate_dtype == 1)
+    err = launch_tiles<__nv_bfloat16>(xf, xb, whf, whb, whf_t, whb_t, lengths, hprev, cprev, dfinal, douts,
+                                      dxf, dxb, T, R, H, sms, stream);
   else
-    err = launch<4, 1, 4, 4, 3, 4>(a, b, wf, wb, wtf, wtb, len, hp, cp, dfin, dou, gf, gb, T, R, H, st);
+    err = launch_tiles<float>(xf, xb, whf, whb, whf_t, whb_t, lengths, hprev, cprev, dfinal, douts, dxf,
+                              dxb, T, R, H, sms, stream);
   return (int)err;
 }

@@ -1,4 +1,5 @@
-// Training forward of the bidirectional LSTM recurrence, fp32, with residuals.
+// Training forward of the bidirectional LSTM recurrence, with residuals: fp32
+// arithmetic over fp32 or bf16 gates.
 //
 // Replaces the TPU kernel dualvgr_tpu/ops/lstm_pallas_train.py::_run_fwd_m
 // (kernel body `_fwd_kernel_m`). It computes what the eval recurrence
@@ -10,7 +11,11 @@
 // the state each step starts from, (h_{t-1}, c_{t-1}), into hprev and cprev
 // (T, R, 2H) in kernel time, [fwd | bwd] on the last axis: the backward
 // kernel (bilstm_train_bwd.cu) recomputes the gates from them and the
-// streamed gates, instead of keeping the (T, R, 4H) activations.
+// streamed gates, instead of keeping the (T, R, 4H) activations. The gates
+// may be bf16 (the appearance op under compute_dtype: bfloat16,
+// lstm_pallas_train.py:392-405): read as bf16 and widened; everything
+// written (final, outs, the residuals) is fp32 either way, as in the TPU
+// kernel.
 //
 // Design: the eval kernel's. The TPU grid (row_blocks, T) carries h/c in
 // VMEM across the sequential T axis; here each block owns a tile of rows and
@@ -28,6 +33,7 @@
 // direction) does not fit in shared memory and is streamed from L2 on every
 // step, as in the eval kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,9 +48,14 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-template <int kTy, int kRowsPerThread>
+__device__ __forceinline__ float gate_at(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float gate_at(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(__ldg(p + i));
+}
+
+template <int kTy, int kRowsPerThread, typename TG>
 __global__ void __launch_bounds__(kTx * kTy, 1)
-bilstm_train_fwd_kernel(const float* __restrict__ xf, const float* __restrict__ xb,
+bilstm_train_fwd_kernel(const TG* __restrict__ xf, const TG* __restrict__ xb,
                         const float* __restrict__ whf, const float* __restrict__ whb,
                         const int* __restrict__ lengths, float* __restrict__ final_out,
                         float* __restrict__ outs, float* __restrict__ hprev,
@@ -56,7 +67,7 @@ bilstm_train_fwd_kernel(const float* __restrict__ xf, const float* __restrict__ 
   float* sc = sh + kRows * H;                   // [kRows][H] c state
 
   const int dir = blockIdx.y;
-  const float* __restrict__ x = dir ? xb : xf;
+  const TG* __restrict__ x = dir ? xb : xf;
   const float* __restrict__ w = dir ? whb : whf;
   const int G = 4 * H;
   const int tx = threadIdx.x % kTx;
@@ -103,7 +114,7 @@ bilstm_train_fwd_kernel(const float* __restrict__ xf, const float* __restrict__ 
       for (int u = 0; u < kUnitsPerThread; ++u)
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          acc[r][u][g] = row[r] < R ? __ldg(x + base + g * H + col[u]) : 0.f;
+          acc[r][u][g] = row[r] < R ? gate_at(x, base + g * H + col[u]) : 0.f;
     }
 
     // gates += h_{t-1} @ W_hh
@@ -171,12 +182,12 @@ bilstm_train_fwd_kernel(const float* __restrict__ xf, const float* __restrict__ 
   }
 }
 
-template <int kTy, int kRowsPerThread>
-cudaError_t launch(const float* xf, const float* xb, const float* whf, const float* whb,
+template <int kTy, int kRowsPerThread, typename TG>
+cudaError_t launch(const TG* xf, const TG* xb, const float* whf, const float* whb,
                    const int* lengths, float* final_out, float* outs, float* hprev,
                    float* cprev, int T, int R, int H, cudaStream_t stream) {
   constexpr int kRows = kTy * kRowsPerThread;
-  auto* kernel = bilstm_train_fwd_kernel<kTy, kRowsPerThread>;
+  auto* kernel = bilstm_train_fwd_kernel<kTy, kRowsPerThread, TG>;
   const int smem = 2 * kRows * H * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -186,25 +197,12 @@ cudaError_t launch(const float* xf, const float* xb, const float* whf, const flo
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry for ctypes. `lengths` (int32, R) and `outs` may be null.
-// Returns the cudaError_t of the launch (0 = cudaSuccess). Tile choice as in
-// the eval kernel: 16-row tiles of 8 rows per thread where they give every
-// SM a block (the appearance encoder), else 4-row tiles of one row per
-// thread (the question encoders, R = 256).
-extern "C" int bilstm_train_fwd_launch(const void* xf, const void* xb, const void* whf,
-                                       const void* whb, const void* lengths, void* final_out,
-                                       void* outs, void* hprev, void* cprev, int T, int R, int H,
-                                       void* stream) {
-  if (T <= 0 || R <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const auto* a = static_cast<const float*>(xf);
-  const auto* b = static_cast<const float*>(xb);
+template <typename TG>
+cudaError_t launch_tiles(const void* xf, const void* xb, const void* whf, const void* whb,
+                         const void* lengths, void* final_out, void* outs, void* hprev,
+                         void* cprev, int T, int R, int H, int sms, void* stream) {
+  const auto* a = static_cast<const TG*>(xf);
+  const auto* b = static_cast<const TG*>(xb);
   const auto* wf = static_cast<const float*>(whf);
   const auto* wb = static_cast<const float*>(whb);
   const auto* len = static_cast<const int*>(lengths);
@@ -213,7 +211,33 @@ extern "C" int bilstm_train_fwd_launch(const void* xf, const void* xb, const voi
   auto* hp = static_cast<float*>(hprev);
   auto* cp = static_cast<float*>(cprev);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (2 * ((R + 15) / 16) >= sms) err = launch<2, 8>(a, b, wf, wb, len, fin, o, hp, cp, T, R, H, st);
-  else err = launch<4, 1>(a, b, wf, wb, len, fin, o, hp, cp, T, R, H, st);
+  if (2 * ((R + 15) / 16) >= sms) return launch<2, 8>(a, b, wf, wb, len, fin, o, hp, cp, T, R, H, st);
+  return launch<4, 1>(a, b, wf, wb, len, fin, o, hp, cp, T, R, H, st);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. `lengths` (int32, R) and `outs` may be null.
+// gate_dtype: 0 for fp32 gates, 1 for bf16. Returns the cudaError_t of the
+// launch (0 = cudaSuccess). Tile choice as in
+// the eval kernel: 16-row tiles of 8 rows per thread where they give every
+// SM a block (the appearance encoder), else 4-row tiles of one row per
+// thread (the question encoders, R = 256).
+extern "C" int bilstm_train_fwd_launch(const void* xf, const void* xb, const void* whf,
+                                       const void* whb, const void* lengths, void* final_out,
+                                       void* outs, void* hprev, void* cprev, int T, int R, int H,
+                                       int gate_dtype, void* stream) {
+  if (T <= 0 || R <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || (gate_dtype != 0 && gate_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (gate_dtype == 1)
+    err = launch_tiles<__nv_bfloat16>(xf, xb, whf, whb, lengths, final_out, outs, hprev, cprev, T, R, H,
+                                      sms, stream);
+  else
+    err = launch_tiles<float>(xf, xb, whf, whb, lengths, final_out, outs, hprev, cprev, T, R, H, sms,
+                              stream);
   return (int)err;
 }

@@ -11,7 +11,9 @@ model/utils.py:60-105, model/AnswerDecoder.py:155-182):
   broadcast to module_dim // 4, the width of one GAT head.
 * ``ContextSelfAttn``: dropout 0.15 (training mode) -> Linear (no bias) ->
   ELU -> Linear -> 1 -> softmax over clips -> weighted sum of the
-  dropped-out visual features.
+  dropped-out visual features; ``v_proj`` is streamed under
+  ``compute_dtype: bfloat16``, QueryAttn and QueryPunish stay fp32
+  (``ops/precision.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dualvgr_tpu_torch.ops.dropout import Dropout
+from dualvgr_tpu_torch.ops.precision import SLinear
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
@@ -71,7 +74,7 @@ class ContextSelfAttn(nn.Module):
     def __init__(self, module_dim: int = 768):
         super().__init__()
         self.drop = Dropout(0.15)
-        self.v_proj = nn.Linear(module_dim, module_dim, bias=False)
+        self.v_proj = SLinear(module_dim, module_dim, bias=False)
         self.attn = nn.Linear(module_dim, 1)
 
     def forward(self, visual_feat, generator=None):

@@ -4,7 +4,8 @@ q' = Linear(q); [visual, q'] -> Dropout(0.15) -> Linear(2D -> D) -> ELU ->
 BatchNorm1d -> Dropout(0.15) -> Linear(D -> num_answers). The dropouts sit
 at the reference's ``classifier`` indices 0 and 4 and hold no state, so the
 Linear and batch-norm layers keep the reference's indices 1, 3 and 5 in the
-state_dict.
+state_dict. The three Linears are streamed under ``compute_dtype:
+bfloat16``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from dualvgr_tpu_torch.ops.dropout import Dropout
+from dualvgr_tpu_torch.ops.precision import SLinear
 
 
 class MaskedBatchNorm(nn.Module):
@@ -62,14 +64,14 @@ class OutputUnitOpenEnded(nn.Module):
 
     def __init__(self, module_dim: int = 768, num_answers: int = 1000):
         super().__init__()
-        self.question_proj = nn.Linear(module_dim, module_dim)
+        self.question_proj = SLinear(module_dim, module_dim)
         self.classifier = nn.Sequential(
             Dropout(0.15),
-            nn.Linear(2 * module_dim, module_dim),
+            SLinear(2 * module_dim, module_dim),
             nn.ELU(),
             MaskedBatchNorm(module_dim),
             Dropout(0.15),
-            nn.Linear(module_dim, num_answers),
+            SLinear(module_dim, num_answers),
         )
 
     def forward(self, question_embedding, visual_embedding, valid=None, generator=None):

@@ -23,6 +23,15 @@ graph cycles run as the plain modules under autograd (the fused cycle has
 no backward, in the JAX package either). Without ``use_kernels``, or on
 CPU tensors, the same arithmetic runs as plain PyTorch. The module
 state_dict uses the reference's key names.
+
+``compute_dtype`` ("float32", the default, or "bfloat16") is the JAX
+package's mixed-precision knob (``ops/precision.py``): under "bfloat16" the
+encoders' input projections, the plain GAT modules' W products, the SFGCN
+projections, MFB, ContextSelfAttn's ``v_proj`` and the classifier's three
+Linears stream bf16 operands with fp32 sums, and the BiLSTM gates are
+rounded to bf16. It changes no parameter and no state_dict key, and can be
+set on a built model (``model.compute_dtype = "bfloat16"``), like
+``use_kernels``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from dualvgr_tpu_torch.models.fusion import MFB
 from dualvgr_tpu_torch.models.graph import AttentionSFGCN, PunishGAT, dense_self_loop_adjacency
 from dualvgr_tpu_torch.models.init import init_dualvgr_
 from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle
+from dualvgr_tpu_torch.ops.precision import stream_dtype_of
 from dualvgr_tpu_torch.utils.device import resolve_device
 
 
@@ -158,7 +168,8 @@ class DualVGR(nn.Module):
     def __init__(self, vision_dim: int = 2048, module_dim: int = 768, word_dim: int = 300,
                  question_vocab_size: int = 1000, num_answers: int = 1000,
                  num_of_nodes: int = 8, graph_layers: int = 1, unit_layers: int = 2,
-                 use_kernels: bool = True, generator: torch.Generator | None = None):
+                 use_kernels: bool = True, compute_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.use_kernels = use_kernels
         self.linguistic_input_unit = QuestionEncoder(question_vocab_size, word_dim, module_dim)
@@ -170,7 +181,22 @@ class DualVGR(nn.Module):
         self.feature_aggregation = ContextSelfAttn(module_dim)
         self.output_unit = OutputUnitOpenEnded(module_dim, num_answers)
         init_dualvgr_(self, generator if generator is not None else torch.Generator().manual_seed(0))
+        self.compute_dtype = compute_dtype
         self.eval()
+
+    @property
+    def compute_dtype(self) -> str:
+        return self._compute_dtype
+
+    @compute_dtype.setter
+    def compute_dtype(self, value: str) -> None:
+        """Set the stream dtype of every streamed module (those holding a
+        ``stream_dtype``)."""
+        sd = stream_dtype_of(value)
+        self._compute_dtype = "float32" if sd is None else value
+        for m in self.modules():
+            if hasattr(m, "stream_dtype"):
+                m.stream_dtype = sd
 
     def forward(self, video_appearance_feat, video_motion_feat, question,
                 question_len, valid=None, *, generator=None) -> DualVGROutput:
@@ -210,12 +236,14 @@ class DualVGR(nn.Module):
 
 
 def build_model(*, device: str | torch.device = "cuda", seed: int = 0,
-                use_kernels: bool = True, **dims) -> DualVGR:
+                use_kernels: bool = True, compute_dtype: str = "float32", **dims) -> DualVGR:
     """A DualVGR in eval mode on ``device``, drawn from ``seed`` on the CPU
-    (so the weights do not depend on the device). ``dims`` are DualVGR's
-    size arguments (vision_dim, module_dim, word_dim, question_vocab_size,
-    num_answers, num_of_nodes, graph_layers, unit_layers). Raises on a
-    machine without CUDA unless ``device='cpu'``."""
+    (so the weights do not depend on the device and not on
+    ``compute_dtype``). ``dims`` are DualVGR's size arguments (vision_dim,
+    module_dim, word_dim, question_vocab_size, num_answers, num_of_nodes,
+    graph_layers, unit_layers). Raises on a machine without CUDA unless
+    ``device='cpu'``."""
     dev = resolve_device(device)
-    model = DualVGR(use_kernels=use_kernels, generator=torch.Generator().manual_seed(seed), **dims)
+    model = DualVGR(use_kernels=use_kernels, compute_dtype=compute_dtype,
+                    generator=torch.Generator().manual_seed(seed), **dims)
     return model.to(dev)

@@ -8,7 +8,8 @@
 * ``AppearanceEncoder`` == VisualAppearanceEncoder: dropout 0.15 -> tanh on
   (B, C, F, 2048), a BiLSTM over the F frames of each of the B*C clips,
   final fwd/bwd states concatenated -> dropout 0.18 -> (B, C, module_dim).
-* ``MotionEncoder``: Linear 2048 -> module_dim.
+* ``MotionEncoder``: Linear 2048 -> module_dim, streamed under
+  ``compute_dtype: bfloat16``.
 
 Dropout acts in training mode only (``model.train()``) and draws from the
 generator passed to ``forward``. With ``use_kernel`` every BiLSTM's
@@ -20,6 +21,11 @@ trainable pair (``ops/lstm_train.py``): the appearance encoder through
 ``appearance_bilstm_train`` (its x, tanh of dropped-out raw features, has
 nothing trainable upstream), the question encoders through
 ``bilstm_trainable``.
+
+Under ``compute_dtype: bfloat16`` every BiLSTM streams its input projection
+and rounds its gates to bf16 (``ops/lstm.py``); in eval with ``use_kernel``
+the appearance encoder's projection is one launch of kernel 6 with tanh
+fused, from the raw clips (``ops/lstm.py::appearance_final_bf16``).
 """
 
 from __future__ import annotations
@@ -28,15 +34,18 @@ import torch
 from torch import nn
 
 from dualvgr_tpu_torch.ops.dropout import Dropout
-from dualvgr_tpu_torch.ops.lstm import LSTMParams, bilstm
+from dualvgr_tpu_torch.ops.lstm import LSTMParams, appearance_final_bf16, bilstm
+from dualvgr_tpu_torch.ops.precision import SLinear
 
 
 class BiLSTM(nn.Module):
     """Bidirectional masked LSTM over (B, T, D), with nn.LSTM's parameter
-    names and shapes (weight_ih_l0 (4H, D), ..., the ``_reverse`` set)."""
+    names and shapes (weight_ih_l0 (4H, D), ..., the ``_reverse`` set).
+    ``stream_dtype`` (None or bf16) is set from the model's compute_dtype."""
 
     def __init__(self, input_dim: int, hidden: int):
         super().__init__()
+        self.stream_dtype: torch.dtype | None = None
         for sfx in ("", "_reverse"):
             self.register_parameter(f"weight_ih_l0{sfx}", nn.Parameter(torch.empty(4 * hidden, input_dim)))
             self.register_parameter(f"weight_hh_l0{sfx}", nn.Parameter(torch.empty(4 * hidden, hidden)))
@@ -57,7 +66,7 @@ class BiLSTM(nn.Module):
         return bilstm(
             self._params(""), self._params("_reverse"), x, lengths,
             with_outputs=with_outputs, use_kernel=use_kernel, train=self.training,
-            drop_input_grad=drop_input_grad,
+            drop_input_grad=drop_input_grad, stream_dtype=self.stream_dtype,
         )
 
 
@@ -105,12 +114,17 @@ class AppearanceEncoder(nn.Module):
         """(B, C, F, vision_dim) -> (B, C, module_dim)."""
         b, c, f, d = clips.shape
         # each clip is one full-length sequence of F frames
-        x = torch.tanh(self.drop_clips(clips, generator)).reshape(b * c, f, d)
-        _, final = self.encoder(x, with_outputs=False, use_kernel=use_kernel, drop_input_grad=True)
+        x = self.drop_clips(clips, generator).reshape(b * c, f, d)
+        enc = self.encoder
+        if use_kernel and enc.stream_dtype is not None and not self.training:
+            # kernel 6 applies the tanh itself
+            final = appearance_final_bf16(enc._params(""), enc._params("_reverse"), x.contiguous())
+        else:
+            _, final = enc(torch.tanh(x), with_outputs=False, use_kernel=use_kernel, drop_input_grad=True)
         return self.drop_final(final, generator).view(b, c, self.module_dim)
 
 
-class MotionEncoder(nn.Linear):
+class MotionEncoder(SLinear):
     """Linear vision_dim -> module_dim (reference models.py:46,74); the
     reference's ``visual_motion_input_unit`` is this Linear itself."""
 

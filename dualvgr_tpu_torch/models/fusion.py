@@ -2,13 +2,16 @@
 
 The appearance x motion fusion at the end of the DualVGR unit stack:
 input dims [768, 768], output 768, mm_dim 256, factor 2, ELU in and out.
-The (mm_dim, factor) reshape sums adjacent column pairs.
+The (mm_dim, factor) reshape sums adjacent column pairs. The three Linears
+are streamed under ``compute_dtype: bfloat16``.
 """
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
+
+from dualvgr_tpu_torch.ops.precision import SLinear
 
 
 class MFB(nn.Module):
@@ -18,9 +21,9 @@ class MFB(nn.Module):
                  factor: int = 2):
         super().__init__()
         self.mm_dim, self.factor = mm_dim, factor
-        self.linear0 = nn.Linear(input_dim, mm_dim * factor)
-        self.linear1 = nn.Linear(input_dim, mm_dim * factor)
-        self.linear_out = nn.Linear(mm_dim, output_dim)
+        self.linear0 = SLinear(input_dim, mm_dim * factor)
+        self.linear1 = SLinear(input_dim, mm_dim * factor)
+        self.linear_out = SLinear(mm_dim, output_dim)
 
     def forward(self, x0, x1):
         """x0, x1 (..., D) -> (..., output_dim)."""

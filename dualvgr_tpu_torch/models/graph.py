@@ -12,6 +12,10 @@ layout of the plain additive computation and of the fused cycle kernel.
 PunishGAT in additive form: a([Wh_i || Wh_j]) = a_src . Wh_i + a_dst . Wh_j
 + b_a, so the (B, N, N, 2*hd) pairwise concat is never built. The values,
 not the logits, are gated by the punishment scores.
+
+Under ``compute_dtype: bfloat16`` PunishGAT's W product and AttentionSFGCN's
+projection are streamed (``ops/precision.py``); the fused cycle kernel
+(``ops/gat_kernel.py``) stays fp32, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dualvgr_tpu_torch.ops.dropout import Dropout
+from dualvgr_tpu_torch.ops.precision import SLinear, streamed_matmul
 
 
 class _GATHead(nn.Module):
@@ -38,6 +43,7 @@ class PunishGAT(nn.Module):
     def __init__(self, n_heads: int = 4, head_dim: int = 192, in_dim: int = 768):
         super().__init__()
         self.n_heads, self.head_dim = n_heads, head_dim
+        self.stream_dtype: torch.dtype | None = None
         for h in range(n_heads):
             self.add_module(f"attention_{h}", _GATHead(in_dim, head_dim))
         self.drop = Dropout(0.15)
@@ -56,7 +62,7 @@ class PunishGAT(nn.Module):
         b, n, _ = h.shape
         nh, hd = self.n_heads, self.head_dim
         w, bias, a, a_bias = self.merged()
-        wh = (self.drop(h, generator) @ w + bias).view(b, n, nh, hd)
+        wh = (streamed_matmul(self.drop(h, generator), w, self.stream_dtype) + bias).view(b, n, nh, hd)
         src = torch.einsum("bnhd,hd->bhn", wh, a[:, :hd])
         dst = torch.einsum("bnhd,hd->bhn", wh, a[:, hd:])
         e = src[..., :, None] + dst[..., None, :] + a_bias[None, :, None, None]
@@ -77,7 +83,7 @@ class AttentionSFGCN(nn.Module):
     def __init__(self, hidden: int = 768, in_dim: int = 768):
         super().__init__()
         self.project = nn.Sequential(
-            nn.Linear(in_dim, hidden), nn.Tanh(), nn.Linear(hidden, 1, bias=False)
+            SLinear(in_dim, hidden), nn.Tanh(), nn.Linear(hidden, 1, bias=False)
         )
 
     def merged(self):

@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bilstm_recurrence.cu", "gat_cycle.cu", "bilstm_train_fwd.cu", "bilstm_train_bwd.cu")
+SOURCES = ("bilstm_recurrence.cu", "gat_cycle.cu", "bilstm_train_fwd.cu", "bilstm_train_bwd.cu",
+           "input_proj.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -6,7 +6,10 @@ precomputed gates ``xproj_f`` (T, R, 4H) and time-reversed ``xproj_b_rev``
 (T, R, 4H), recurrent weights ``w_hh_*`` (H, 4H), optional packed lengths,
 and an optional (R, T, 2H) tensor of per-step outputs, zero at padding,
 whose backward half is already back in original time order. The final
-state is (R, 2H) = [h_fwd at len-1, h_bwd at t=0].
+state is (R, 2H) = [h_fwd at len-1, h_bwd at t=0]. The gates may be fp32
+or bf16 (``compute_dtype: bfloat16``; ``lstm_pallas.py:71-72``): the
+recurrence runs in fp32 either way and ``final`` and ``outs`` come back in
+the gates' dtype (``lstm_pallas.py:155-158``); W_hh stays fp32.
 
 On a CPU tensor the wrapper runs ``bilstm_recurrence_reference``, the
 plain PyTorch loop; on a CUDA tensor it launches
@@ -47,7 +50,8 @@ def recurrence_loop(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: b
     """
     t_total, r, g = xf.shape
     hidden = g // 4
-    hf = cf = hb = cb = xf.new_zeros((r, hidden))
+    # the state in the weights' dtype: fp32 for fp32 or bf16 gates
+    hf = cf = hb = cb = w_hh_f.new_zeros((r, hidden))
     if lengths is not None:
         lens = lengths.to(device=xf.device, dtype=torch.int64).view(r, 1)
     outs_f, outs_b, hprev, cprev = [], [], [], []
@@ -87,7 +91,8 @@ def bilstm_recurrence_reference(
     final, outs, _, _ = recurrence_loop(
         xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs
     )
-    return (final, outs) if with_outputs else final
+    final = final.to(xproj_f.dtype)
+    return (final, outs.to(xproj_f.dtype)) if with_outputs else final
 
 
 def refuse_autograd(name, *tensors):
@@ -107,9 +112,19 @@ def refuse_autograd(name, *tensors):
         )
 
 
+GATE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the sources' gate_dtype argument
+
+
+def gate_dtype_code(name, t):
+    """The ``gate_dtype`` code of gates ``t`` (fp32 or bf16); raises on any other."""
+    if t.dtype not in GATE_DTYPES:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected float32 or bfloat16")
+    return GATE_DTYPES[t.dtype]
+
+
 def _launch_fn():
     fn = _build.load("bilstm_recurrence.cu").bilstm_recurrence_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -147,8 +162,9 @@ def bilstm_recurrence(
     hidden = g // 4
     if g % 4 or hidden % 4 or hidden > MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
-    _check("xproj_f", xproj_f, (t_total, r, g), dev)
-    _check("xproj_b_rev", xproj_b_rev, (t_total, r, g), dev)
+    code = gate_dtype_code("xproj_f", xproj_f)
+    _check("xproj_f", xproj_f, (t_total, r, g), dev, xproj_f.dtype)
+    _check("xproj_b_rev", xproj_b_rev, (t_total, r, g), dev, xproj_f.dtype)
     _check("w_hh_f", w_hh_f, (hidden, g), dev)
     _check("w_hh_b", w_hh_b, (hidden, g), dev)
     lens_ptr = None
@@ -157,14 +173,14 @@ def bilstm_recurrence(
             raise ValueError(f"lengths must be integer (R,) = ({r},), got {lengths.dtype} {tuple(lengths.shape)}")
         lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
         lens_ptr = lengths.data_ptr()
-    final = torch.empty((r, 2 * hidden), device=dev, dtype=torch.float32)
-    outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=torch.float32) if with_outputs else None
+    final = torch.empty((r, 2 * hidden), device=dev, dtype=xproj_f.dtype)
+    outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=xproj_f.dtype) if with_outputs else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launch_fn()(
             xproj_f.data_ptr(), xproj_b_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
             lens_ptr, final.data_ptr(), outs.data_ptr() if with_outputs else None,
-            t_total, r, hidden, stream,
+            t_total, r, hidden, code, stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_recurrence launch failed: cudaError {err}")

@@ -18,11 +18,14 @@ The kernel half of ``dualvgr_tpu/ops/lstm_pallas_train.py``:
 
 The inputs are kernel 1's: gates ``xf`` (T, R, 4H) and time-reversed
 ``xb_rev``, recurrent weights ``w_hh_*`` (H, 4H), optional (R,) lengths.
-On a CPU tensor each wrapper runs its ``*_reference``, the plain PyTorch
-loop; on a CUDA tensor it launches ``csrc/bilstm_train_fwd.cu`` or
-``csrc/bilstm_train_bwd.cu`` or raises. Both record nothing for autograd
-(``refuse_autograd``); the Functions of ``ops/lstm_train.py`` call them.
-fp32 only. What bounds each kernel and what its design does about it is
+The gates may be fp32 or bf16 (the appearance op under ``compute_dtype:
+bfloat16``, ``lstm_pallas_train.py:392-405``); the weights, the
+residuals, ``final``, ``outs`` and the dgates are fp32 either way, as in
+the TPU kernels. On a CPU tensor each wrapper runs its ``*_reference``,
+the plain PyTorch loop; on a CUDA tensor it launches
+``csrc/bilstm_train_fwd.cu`` or ``csrc/bilstm_train_bwd.cu`` or raises.
+Both record nothing for autograd (``refuse_autograd``); the Functions of
+``ops/lstm_train.py`` call them. What bounds each kernel and what its design does about it is
 written at the top of its source.
 """
 
@@ -33,7 +36,9 @@ import ctypes
 import torch
 
 from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm_kernel import MAX_HIDDEN, _check, recurrence_loop, refuse_autograd
+from dualvgr_tpu_torch.ops.lstm_kernel import (
+    MAX_HIDDEN, _check, gate_dtype_code, recurrence_loop, refuse_autograd,
+)
 
 
 def bilstm_train_fwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False):
@@ -55,12 +60,13 @@ def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev
     hidden = g // 4
     if lengths is not None:
         lens = lengths.to(device=xf.device, dtype=torch.int64).view(r, 1)
-    one = xf.new_ones(())
+    # carries and dgates in the weights' dtype: fp32 for fp32 or bf16 gates
+    one = w_hh_f.new_ones(())
     dxs = []
     for k, (x, w) in enumerate(((xf, w_hh_f), (xb_rev, w_hh_b))):
         cols = slice(k * hidden, (k + 1) * hidden)
-        dx = torch.empty_like(x)
-        dh, dc = dfinal[:, cols], xf.new_zeros((r, hidden))
+        dx = w.new_empty(x.shape)
+        dh, dc = dfinal[:, cols], w.new_zeros((r, hidden))
         for t in reversed(range(t_total)):
             h_prev, c_prev = hprev[t, :, cols], cprev[t, :, cols]
             gi, gf, gg, go = (x[t] + h_prev @ w).chunk(4, dim=-1)
@@ -70,7 +76,7 @@ def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev
             if lengths is None:
                 m = one
             else:
-                m = ((t < lens) if k == 0 else (t >= t_total - lens)).to(x.dtype)
+                m = ((t < lens) if k == 0 else (t >= t_total - lens)).to(w.dtype)
             dh_tot = dh if douts is None else dh + m * douts[:, t if k == 0 else t_total - 1 - t, cols]
             dh_in, dc_in = m * dh_tot, m * dc
             dcell = dc_in + dh_in * o * (1.0 - tc * tc)
@@ -89,14 +95,15 @@ def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev
 
 def _launch_fn(source, name, n_ptrs):
     fn = getattr(_build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check_common(name, xf, xb_rev, w_hh_f, w_hh_b, lengths):
     """Device, type, shape and contiguity checks shared by both wrappers;
-    returns (device, T, R, H, lengths as contiguous int32 or None)."""
+    returns (device, T, R, H, lengths as contiguous int32 or None, the
+    gates' dtype code)."""
     if xf.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA, not {xf.device}")
     dev = xf.device
@@ -106,15 +113,16 @@ def _check_common(name, xf, xb_rev, w_hh_f, w_hh_b, lengths):
     hidden = g // 4
     if g % 4 or hidden % 4 or hidden > MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
-    _check("xf", xf, (t_total, r, g), dev)
-    _check("xb_rev", xb_rev, (t_total, r, g), dev)
+    code = gate_dtype_code("xf", xf)
+    _check("xf", xf, (t_total, r, g), dev, xf.dtype)
+    _check("xb_rev", xb_rev, (t_total, r, g), dev, xf.dtype)
     _check("w_hh_f", w_hh_f, (hidden, g), dev)
     _check("w_hh_b", w_hh_b, (hidden, g), dev)
     if lengths is not None:
         if lengths.dtype.is_floating_point or tuple(lengths.shape) != (r,):
             raise ValueError(f"lengths must be integer (R,) = ({r},), got {lengths.dtype} {tuple(lengths.shape)}")
         lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
-    return dev, t_total, r, hidden, lengths
+    return dev, t_total, r, hidden, lengths, code
 
 
 def _ptr(t):
@@ -126,7 +134,8 @@ def bilstm_train_fwd(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: 
     refuse_autograd("bilstm_train_fwd", xf, xb_rev, w_hh_f, w_hh_b)
     if xf.device.type == "cpu":
         return bilstm_train_fwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs)
-    dev, t_total, r, hidden, lengths = _check_common("bilstm_train_fwd", xf, xb_rev, w_hh_f, w_hh_b, lengths)
+    dev, t_total, r, hidden, lengths, code = _check_common("bilstm_train_fwd", xf, xb_rev, w_hh_f, w_hh_b,
+                                                           lengths)
     final = torch.empty((r, 2 * hidden), device=dev, dtype=torch.float32)
     outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=torch.float32) if with_outputs else None
     hprev, cprev = (torch.empty((t_total, r, 2 * hidden), device=dev, dtype=torch.float32) for _ in range(2))
@@ -135,7 +144,7 @@ def bilstm_train_fwd(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: 
         err = _launch_fn("bilstm_train_fwd.cu", "bilstm_train_fwd_launch", 9)(
             xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths),
             final.data_ptr(), _ptr(outs), hprev.data_ptr(), cprev.data_ptr(),
-            t_total, r, hidden, stream,
+            t_total, r, hidden, code, stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_train_fwd launch failed: cudaError {err}")
@@ -149,7 +158,8 @@ def bilstm_train_bwd(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, 
     refuse_autograd("bilstm_train_bwd", xf, xb_rev, w_hh_f, w_hh_b, hprev, cprev, dfinal, douts)
     if xf.device.type == "cpu":
         return bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, douts)
-    dev, t_total, r, hidden, lengths = _check_common("bilstm_train_bwd", xf, xb_rev, w_hh_f, w_hh_b, lengths)
+    dev, t_total, r, hidden, lengths, code = _check_common("bilstm_train_bwd", xf, xb_rev, w_hh_f, w_hh_b,
+                                                           lengths)
     _check("hprev", hprev, (t_total, r, 2 * hidden), dev)
     _check("cprev", cprev, (t_total, r, 2 * hidden), dev)
     _check("dfinal", dfinal, (r, 2 * hidden), dev)
@@ -158,14 +168,14 @@ def bilstm_train_bwd(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, 
     # the dh_prev = dgates @ W_hh^T product reads W_hh^T (4H, H), whose
     # columns are the hidden units: coalesced across the unit lanes
     w_t_f, w_t_b = w_hh_f.t().contiguous(), w_hh_b.t().contiguous()
-    dxf, dxb = torch.empty_like(xf), torch.empty_like(xb_rev)
+    dxf, dxb = (torch.empty(xf.shape, device=dev, dtype=torch.float32) for _ in range(2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd_launch", 13)(
             xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
             w_t_f.data_ptr(), w_t_b.data_ptr(), _ptr(lengths), hprev.data_ptr(), cprev.data_ptr(),
             dfinal.data_ptr(), _ptr(douts), dxf.data_ptr(), dxb.data_ptr(),
-            t_total, r, hidden, stream,
+            t_total, r, hidden, code, stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_train_bwd launch failed: cudaError {err}")

@@ -1,7 +1,9 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-* Importing every module of ``dualvgr_tpu_torch`` and ``chip_smoke`` loads
-  none of jax, flax or the JAX package ``dualvgr_tpu``.
+* Importing every module of ``dualvgr_tpu_torch`` (the bf16 streaming and
+  projection modules and the port's probe included) and ``chip_smoke``
+  loads none of jax, flax, the JAX package ``dualvgr_tpu`` or
+  ``benchmarks``.
 * The entry points default to ``device="cuda"`` and raise on a machine
   without CUDA instead of answering through the plain path.
 """
@@ -27,10 +29,12 @@ def test_port_imports_no_jax():
             importlib.import_module(m)
         import chip_smoke
         bad = sorted(k for k in sys.modules
-                     if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dualvgr_tpu"))
+                     if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dualvgr_tpu", "benchmarks"))
         print(len(mods), bad)
         assert not bad, bad
-        assert len(mods) >= 14, mods
+        for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe"):
+            assert "dualvgr_tpu_torch." + m in mods, m
+        assert len(mods) >= 17, mods
         """
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

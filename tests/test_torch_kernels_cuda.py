@@ -7,10 +7,14 @@ the JAX package, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-fp32 throughout, TF32 off. Tolerances: recurrence 1e-4 absolute; graph
+fp32 arithmetic, TF32 off. Tolerances: recurrence 1e-4 absolute; graph
 cycle, model outputs and the training backward's gradients
 1e-3 * max(1, max|ref|) (fp32 sums in another order; the backward carries
-gradients over T steps and a product over 4H).
+gradients over T steps and a product over 4H). Outputs in bf16 (kernels 5
+and 6, kernel 1 with bf16 gates) may differ from the plain version by one
+bf16 rounding step of the reference's magnitude, where a sum taken in
+another order crosses a rounding boundary, plus the fp32 tolerance for
+values near zero.
 """
 
 import numpy as np
@@ -18,7 +22,8 @@ import pytest
 import torch
 
 from dualvgr_tpu_torch import build_model
-from dualvgr_tpu_torch.ops import gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel
+from dualvgr_tpu_torch.bench.proj_probe import compare
+from dualvgr_tpu_torch.ops import gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -251,3 +256,123 @@ def test_train_step_kernel_path_matches_plain_path(rs, cuda, unit_layers, graph_
     assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
     for name, v in norms_p.items():
         assert abs(norms_k[name] - v) <= 1e-3 * v, name
+
+
+def _close_bf16(a, b, atol, name):
+    """bf16 outputs: within one bf16 step of the reference plus ``atol``."""
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape, name
+    steps, _, ok = compare(a, b, atol)
+    assert ok, f"{name}: {steps:.2f} bf16 steps beyond {atol}"
+
+
+@pytest.mark.parametrize("r,t,d,g", [
+    (37, 5, 40, 64),        # ragged row and column tiles, K not a multiple of 32
+    (512, 16, 2048, 1536),  # the serving batch of 32
+    (4096, 16, 2048, 1536), # the flagship batch of 256
+])
+def test_input_proj_kernels_match_plain(rs, cuda, r, t, d, g):
+    x = _t(rs, cuda, r, t, d)
+    w_f, w_b = _t(rs, cuda, g, d, scale=0.02), _t(rs, cuda, g, d, scale=0.02)
+    b_f, b_b = _t(rs, cuda, g), _t(rs, cuda, g)
+    n0 = (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches)
+    for reverse in (False, True):
+        got = proj_kernel.input_proj_one(x, w_f, b_f, reverse=reverse)
+        torch.cuda.synchronize()
+        _close_bf16(got, proj_kernel.input_proj_one_reference(x, w_f, b_f, reverse=reverse), 1e-5,
+                    f"kernel 5 reverse={reverse}")
+    x16 = torch.tanh(x).to(torch.bfloat16)
+    for fuse, xin in ((True, x), (False, x16)):
+        got = proj_kernel.input_proj_both(xin, w_f, b_f, w_b, b_b, fuse_tanh=fuse)
+        torch.cuda.synchronize()
+        want = proj_kernel.input_proj_both_reference(xin, w_f, b_f, w_b, b_b, fuse_tanh=fuse)
+        for a, b, name in zip(got, want, ("xf", "xb_rev")):
+            _close_bf16(a, b, 1e-5, f"kernel 6 fuse_tanh={fuse} {name}")
+    assert (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches) == (n0[0] + 2, n0[1] + 2)
+
+
+def test_input_proj_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    w, b = torch.zeros(64, 40, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(TypeError):
+        proj_kernel.input_proj_both(torch.zeros(3, 4, 40, device=cuda), w, b, w, b, fuse_tanh=False)
+    with pytest.raises(ValueError, match="% 8"):
+        proj_kernel.input_proj_one(torch.zeros(3, 4, 36, device=cuda), torch.zeros(64, 36, device=cuda), b)
+
+
+def test_mm_f32_keeps_an_fp32_output(rs, cuda):
+    """The streamed product on the card: bf16 operands, fp32 sums and an
+    fp32 output, equal to the fp32 product of the rounded operands up to the
+    order of the sums."""
+    a = _t(rs, cuda, 300, 512).to(torch.bfloat16)
+    b = _t(rs, cuda, 512, 200).to(torch.bfloat16)
+    got = precision.mm_f32(a, b)
+    assert got.dtype == torch.float32
+    want = a.float() @ b.float()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("r,t,h,masked,with_outputs", [
+    (37, 5, 16, True, True),
+    (4096, 16, 384, False, False),  # the appearance encoder
+    (256, 24, 384, True, True),     # the question encoders
+])
+def test_recurrence_kernel_with_bf16_gates_matches_plain(rs, cuda, r, t, h, masked, with_outputs):
+    g = 4 * h
+    xf, xb = _t(rs, cuda, t, r, g).to(torch.bfloat16), _t(rs, cuda, t, r, g).to(torch.bfloat16)
+    wf, wb = _t(rs, cuda, h, g, scale=0.1), _t(rs, cuda, h, g, scale=0.1)
+    lens = torch.from_numpy(rs.randint(1, t + 1, (r,)).astype(np.int32)).to(cuda) if masked else None
+    got = lstm_kernel.bilstm_recurrence(xf, xb, wf, wb, lens, with_outputs=with_outputs)
+    torch.cuda.synchronize()
+    want = lstm_kernel.bilstm_recurrence_reference(xf, xb, wf, wb, lens, with_outputs=with_outputs)
+    got, want = (got, want) if with_outputs else ((got,), (want,))
+    for a, b, name in zip(got, want, ("final", "outs")):
+        _close_bf16(a, b, 1e-4, name)
+
+
+@pytest.mark.parametrize("r,t,h", [(37, 5, 16), (4096, 16, 384)])
+def test_train_kernels_with_bf16_gates_match_plain(rs, cuda, r, t, h):
+    """The appearance op's shape: full length, final only, bf16 gates; the
+    outputs and the dgates stay fp32."""
+    g = 4 * h
+    xf, xb = _t(rs, cuda, t, r, g).to(torch.bfloat16), _t(rs, cuda, t, r, g).to(torch.bfloat16)
+    wf, wb = _t(rs, cuda, h, g, scale=0.1), _t(rs, cuda, h, g, scale=0.1)
+    got = lstm_train_kernel.bilstm_train_fwd(xf, xb, wf, wb)
+    torch.cuda.synchronize()
+    want = lstm_train_kernel.bilstm_train_fwd_reference(xf, xb, wf, wb)
+    for a, b, name in zip(got, want, ("final", "outs", "hprev", "cprev")):
+        if b is None:
+            continue
+        assert a.dtype == torch.float32, name
+        _close(a, b, 1e-4, name)
+    _, _, hprev, cprev = want
+    dfinal = _t(rs, cuda, r, 2 * h)
+    got = lstm_train_kernel.bilstm_train_bwd(xf, xb, wf, wb, None, hprev, cprev, dfinal)
+    torch.cuda.synchronize()
+    want = lstm_train_kernel.bilstm_train_bwd_reference(xf, xb, wf, wb, None, hprev, cprev, dfinal)
+    for a, b, name in zip(got, want, ("dxf", "dxb")):
+        assert a.dtype == torch.float32, name
+        _close(a, b, 1e-3, name)
+
+
+@pytest.mark.parametrize("unit_layers,graph_layers", [(1, 1), (1, 2)])
+def test_bf16_model_kernel_path_launches_and_stays_near_fp32(rs, cuda, unit_layers, graph_layers):
+    """The bf16 eval forward on the card: kernel 6 once, kernel 1 three times
+    with bf16 gates, kernel 2 once per stream and unit with graph_layers 1;
+    logits within 5e-2 * max|logit| of the fp32 kernel path (bf16 operands
+    and gates against fp32)."""
+    model = build_model(device=cuda, compute_dtype="bfloat16", vision_dim=64, module_dim=64, word_dim=16,
+                        question_vocab_size=40, num_answers=30, num_of_nodes=6,
+                        graph_layers=graph_layers, unit_layers=unit_layers)
+    b, t = 5, 9
+    app, mot = _t(rs, cuda, b, 6, 4, 64), _t(rs, cuda, b, 6, 64)
+    qlen = torch.from_numpy(rs.randint(1, t + 1, (b,)).astype(np.int32)).to(cuda)
+    q = torch.from_numpy(rs.randint(1, 40, (b, t)).astype(np.int32)).to(cuda)
+    kernels = (proj_kernel.input_proj_both, lstm_kernel.bilstm_recurrence, gat_kernel.gat_cycle)
+    n0 = [k.launches for k in kernels]
+    got = model(app, mot, q, qlen)
+    torch.cuda.synchronize()
+    fused = 2 * unit_layers if graph_layers == 1 else 0
+    assert [k.launches - n for k, n in zip(kernels, n0)] == [1, 3, fused]
+    model.compute_dtype = "float32"
+    want = model(app, mot, q, qlen)
+    scale = want.logits.abs().max().item()
+    assert (got.logits - want.logits).abs().max().item() <= 5e-2 * scale
