@@ -20,12 +20,13 @@ streaming path):
    forward and kernels 3 and 4 with bf16 gates at the appearance shape of
    the bf16 train step, against their plain versions;
 7. eval bf16: the flagship forward in bf16, kernel routing: launches per
-   forward (kernel 6 once, kernel 1 three times with bf16 gates, kernel 2
-   twice, in fp32), ms and QA/s, logits against the fp32 kernel path;
+   forward (kernel 6 once on fp32 x, so the tanh pass once, kernel 1 three
+   times with bf16 gates, kernel 2 twice, in fp32), ms and QA/s, logits
+   against the fp32 kernel path;
 8. serve, serve bf16: a BatchingEngine(max_batch=32) around
    build_predict_fn answers 64 concurrent requests at full width, fp32
    then bf16; this is the serving path, whose launches of kernels 1, 2
-   (and 6 in bf16) are counted;
+   (and 6 and the tanh pass in bf16) are counted;
 9. bilstm_train: the trainable recurrence's forward and backward kernels
    (kernels 3 and 4) against their plain versions at the three shapes of
    the flagship train step, with bidirectional torch.nn.LSTM (cuDNN) in
@@ -40,14 +41,18 @@ streaming path):
 11. train bf16: the same in bf16, the agreement against the fp32 kernel
     path from the same weights; launches per step: kernel 6 once (no
     tanh), kernels 3 and 4 three times each;
-12. proj: kernel 5 (both time orders) and kernel 6 (tanh fused and not)
-    against their plain versions at R = 4096 (batch 256) and R = 512
-    (batch 32), bf16 out, with the largest difference in bf16 steps and the
-    share of elements that differ; ms, plain ms, the library yardsticks
-    (the probe's v0 and v1) and the bound at the bf16 tensor-core peak;
-    then the port's probe (``dualvgr_tpu_torch/bench/proj_probe.py``),
+12. proj: the tanh pass (bit for bit against its plain version; ms,
+    plain ms, one ``torch.tanh(x, out=bf16)`` call as the library yardstick,
+    the bytes bound) and kernel 5 (both time orders) and kernel 6 (on fp32
+    x: the tanh pass, then the product; and on bf16 x) against their plain
+    versions at R = 4096 (batch 256) and R = 512 (batch 32), bf16 out, with
+    the largest difference in bf16 steps and the share of elements that
+    differ; ms, plain ms, the library yardsticks (the probe's v0 and v1),
+    the bound at the bf16 tensor-core peak, TFLOP/s and the share of the
+    bound, and cuBLAS's bf16 GEMM of the same operands for context; then
+    the port's probe (``dualvgr_tpu_torch/bench/proj_probe.py``),
     v0-v4, one line, and one call of its v2, whose 2 launches of kernel 5
-    are counted.
+    (and 2 of the tanh pass) are counted.
 
 Then one JSON line with the kernel table and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
@@ -57,6 +62,7 @@ the fp32 paths, the plain versions and the yardsticks are fp32.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -80,7 +86,8 @@ from dualvgr_tpu_torch.ops.lstm_train_kernel import (
     bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd, bilstm_train_fwd_reference,
 )
 from dualvgr_tpu_torch.ops.proj_kernel import (
-    input_proj_both, input_proj_both_reference, input_proj_one, input_proj_one_reference,
+    input_proj_both, input_proj_both_reference, input_proj_one, input_proj_one_reference, tanh_to_bf16,
+    tanh_to_bf16_reference,
 )
 from dualvgr_tpu_torch.train_lib import forward_backward
 
@@ -135,6 +142,11 @@ TOL_TRAIN_GNORM = 1e-3
 #   relative. An argmax may differ only on a row whose fp32 top-2 margin is
 #   within twice the largest logit difference.
 TOL_BF16_PROJ_ATOL = 1e-5
+#   kernels 5 and 6: a sum in another order crosses a bf16 rounding
+#   boundary on about 1e-3 of the elements (9.1e-4 to 9.5e-4 measured); at
+#   most 2e-3 of them may differ, so an error that stays within one step
+#   everywhere but is systematic still fails
+TOL_BF16_PROJ_SHARE = 2e-3
 TOL_BF16_LOGITS = 5e-2
 TOL_BF16_TRAIN_LOSS = 5e-3
 TOL_BF16_TRAIN_GNORM = 1e-1
@@ -203,8 +215,12 @@ def phase_build():
     say("build", seconds=f"{secs:.2f}", compiled=sorted(reports))
     for src, text in reports.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
+    # the projection's shared memory is dynamic, which ptxas does not report
+    smem = _build.load("input_proj.cu").input_proj_smem_bytes
+    smem.argtypes, smem.restype = [], ctypes.c_int
+    print(f"  input_proj.cu: input_proj_kernel dynamic shared memory {smem()} bytes", flush=True)
 
 
 def flagship_inputs(batch, gen):
@@ -349,11 +365,13 @@ def phase_gat(model, app, mot, q, qlen):
     ]
 
 
-KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one, input_proj_both)
-# launches per fp32 forward and per bf16 forward (kernels 1-6)
-EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1)}
-# launches per train step: kernel 6 (no tanh) once in bf16
-TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0), "bfloat16": (0, 0, 3, 3, 0, 1)}
+KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one, input_proj_both,
+           tanh_to_bf16)
+# launches per fp32 forward and per bf16 forward (kernels 1-6, then the
+# tanh pass, which kernel 6 runs on fp32 x)
+EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1)}
+# launches per train step: kernel 6 (on bf16 x, no tanh pass) once in bf16
+TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0), "bfloat16": (0, 0, 3, 3, 0, 1, 0)}
 
 
 def reset_counts():
@@ -362,7 +380,7 @@ def reset_counts():
 
 
 def counts():
-    """Launches of kernels 1-6."""
+    """Launches of kernels 1-6 and of the tanh pass."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -373,7 +391,7 @@ def phase_eval(model, app, mot, q, qlen):
     out = model(app, mot, q, qlen)
     torch.cuda.synchronize()
     n_lstm, n_gat = counts()[:2]
-    check(counts() == EVAL_LAUNCHES["float32"], f"one forward launched {counts()} kernels 1-6, want (3, 2, 0, ...)")
+    check(counts() == EVAL_LAUNCHES["float32"], f"one forward launched {counts()} kernels, want (3, 2, 0, ...)")
     model.use_kernels = False
     ref = model(app, mot, q, qlen)
     torch.cuda.synchronize()
@@ -481,7 +499,7 @@ def phase_serve(model, tag="serve"):
     check(all(r is not None for r in results), "a request got no answer")
     check(stats["requests"] == SERVE_REQUESTS, f"engine counted {stats['requests']} requests")
     want = tuple(n * stats["batches"] for n in EVAL_LAUNCHES[model.compute_dtype])
-    check(launches == want, f"{tag} launched {launches} kernels 1-6 over {stats['batches']} batches, want {want}")
+    check(launches == want, f"{tag} launched {launches} kernels over {stats['batches']} batches, want {want}")
     for i, ((got_ids, got_scores), (ids, scores)) in enumerate(zip(results, direct)):
         check(got_ids.shape == (TOP_K,) and np.isfinite(got_scores).all(), f"request {i}: bad answer")
         check(np.allclose(got_scores, scores, atol=1e-6), f"request {i}: scores differ from direct")
@@ -490,7 +508,8 @@ def phase_serve(model, tag="serve"):
     say(tag, requests=stats["requests"], batches=stats["batches"],
         mean_batch=f"{stats['mean_batch']:.2f}", p50_ms=f"{stats['latency_ms_p50']:.2f}",
         p99_ms=f"{stats['latency_ms_p99']:.2f}", qa_per_s=f"{SERVE_REQUESTS / wall:.1f}",
-        launches=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]}")
+        launches=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
+                 f"tanh_to_bf16:{launches[6]}")
     return launches
 
 
@@ -671,7 +690,7 @@ def phase_train(batch, compute_dtype="float32"):
     torch.cuda.synchronize()
     launches = counts()
     check(launches == TRAIN_LAUNCHES[compute_dtype],
-          f"one {tag} step launched {launches} kernels 1-6, want {TRAIN_LAUNCHES[compute_dtype]}")
+          f"one {tag} step launched {launches} kernels, want {TRAIN_LAUNCHES[compute_dtype]}")
     loss_k, gn_k = metrics["loss"].item(), module_grad_norms(model)
     if bf16:
         model.compute_dtype = "float32"
@@ -682,7 +701,7 @@ def phase_train(batch, compute_dtype="float32"):
     other = counts()
     loss_p, gn_p = metrics["loss"].item(), module_grad_norms(model)
     model.use_kernels, model.compute_dtype = True, compute_dtype
-    want_other = tuple(a + b for a, b in zip(launches, TRAIN_LAUNCHES["float32"] if bf16 else (0,) * 6))
+    want_other = tuple(a + b for a, b in zip(launches, TRAIN_LAUNCHES["float32"] if bf16 else (0,) * len(KERNELS)))
     check(other == want_other, f"the reference path launched {other} kernels after {launches}, want {want_other}")
     check(np.isfinite(loss_k) and np.isfinite(loss_p), f"non-finite loss {loss_k} / {loss_p}")
     rel_loss = abs(loss_k - loss_p) / max(abs(loss_p), 1e-9)
@@ -715,7 +734,7 @@ def phase_train(batch, compute_dtype="float32"):
     losses = [v.item() for v in losses]
     check(all(np.isfinite(losses)), f"non-finite train losses {losses}")
     want = tuple(n * TIMED_STEPS for n in TRAIN_LAUNCHES[compute_dtype])
-    check(launches == want, f"{TIMED_STEPS} {tag} steps launched {launches} kernels 1-6, want {want}")
+    check(launches == want, f"{TIMED_STEPS} {tag} steps launched {launches} kernels, want {want}")
     say(tag, batch=BATCH, valid=BATCH - TRAIN_PAD, lr=lr, step_ms=f"{ms:.3f}",
         qa_per_s=f"{BATCH / ms * 1e3:.1f}", losses=",".join(f"{v:.5f}" for v in losses),
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
@@ -725,12 +744,36 @@ def phase_train(batch, compute_dtype="float32"):
     return launches
 
 
+def tanh_case(x):
+    """The tanh pass on the probe's x: bit for bit against its plain version,
+    timed beside it and beside one ``torch.tanh(x, out=bf16)`` call, bound
+    by its bytes (x read in fp32, the result written in bf16)."""
+    got, want = tanh_to_bf16(x), tanh_to_bf16_reference(x)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int16), want.view(torch.int16)), "tanh_to_bf16: not bit-exact")
+    lib_out = torch.empty_like(got)
+    torch.tanh(x, out=lib_out)
+    check(torch.equal(lib_out.view(torch.int16), want.view(torch.int16)), "torch.tanh(out=bf16) differs")
+    del got, want
+    ms, plain_ms = time_ms(lambda: tanh_to_bf16(x), 20), time_ms(lambda: tanh_to_bf16_reference(x), 5)
+    library_ms = time_ms(lambda: torch.tanh(x, out=lib_out), 20)
+    nbytes = x.numel() * (4 + 2)
+    bms, by = bound_ms(0, nbytes)
+    say("proj tanh_to_bf16", R=x.shape[0], T=x.shape[1], D=x.shape[2], bit_exact=True, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+        tb_per_s=f"{nbytes / ms / 1e9:.3f}", share_of_bound=f"{bms / ms:.3f}")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
 def proj_case(rows, gen):
     """Kernels 5 and 6 against their plain versions on one set of the
     probe's inputs at ``rows`` = R, timed beside the probe's library
     yardsticks v0 (two products) and v1 (one merged product), with the bound
-    at the bf16 tensor-core peak. Returns the rows of kernels 5 and 6."""
+    at the bf16 tensor-core peak, the achieved TFLOP/s and the share of the
+    bound; the tanh pass on the same x first. Returns the rows of kernels 5
+    and 6 and the tanh pass's."""
     x, w_f, b_f, w_b, b_b = proj_probe.make_inputs(rows, gen)
+    tanh = tanh_case(x)
     x16 = torch.tanh(x).to(BF16)
     forms = {
         "k5_forward": (lambda: input_proj_one(x, w_f, b_f), lambda: input_proj_one_reference(x, w_f, b_f)),
@@ -750,25 +793,36 @@ def proj_case(rows, gen):
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         errs = [check_bf16(f"proj {name} R={rows}", a, b, TOL_BF16_PROJ_ATOL) for a, b in zip(got, want)]
         del got, want
+        share = max(e[2] for e in errs)
+        check(share <= TOL_BF16_PROJ_SHARE, f"proj {name} R={rows}: {share:.2e} of the elements differ")
         ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 3)
         ndir = 1 if name.startswith("k5") else 2
         flops = 2 * r * t * d * g * ndir
         x_bytes = x16.numel() * 2 if name == "k6_bf16_x" else x.numel() * 4
         nbytes = x_bytes + ndir * (g * d * 2 + g * 4 + t * r * g * 2)  # x, W in bf16, bias, out
         bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-        res[name] = dict(err=max(e[0] for e in errs), steps=max(e[1] for e in errs),
-                         share=max(e[2] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=bms, by=by,
-                         flops=flops, bytes=nbytes)
+        res[name] = dict(err=max(e[0] for e in errs), steps=max(e[1] for e in errs), share=share, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, by=by, flops=flops, bytes=nbytes)
     lib = proj_probe.variants(x, w_f, b_f, w_b, b_b)
     v0_ms, v1_ms = time_ms(lib["v0_library"], 10), time_ms(lib["v1_merged"], 10)
+    # context for what bounds the product: cuBLAS's bf16 GEMM of the same
+    # operands, bf16 out (no fp32 bias before the rounding, no time-major
+    # layout: not the function, so no yardstick of any row)
+    a16, w16 = x16.view(r * t, d), torch.cat([w_f, w_b]).to(BF16)
+    gemm_ms = time_ms(lambda: a16 @ w16.t(), 20)
+    say("proj cublas_bf16_gemm", R=rows, M=r * t, N=2 * g, K=d, ms=f"{gemm_ms:.4f}",
+        tflops=f"{res['k6_bf16_x']['flops'] / gemm_ms / 1e9:.1f}")
+    del a16, w16
     for name, c in res.items():
         say(f"proj {name}", R=rows, T=t, D=d, G=g, max_abs_err=f"{c['err']:.3e}",
             max_bf16_steps=f"{c['steps']:.2f}", share_differ=f"{c['share']:.2e}",
-            tol=f"1 bf16 step + {TOL_BF16_PROJ_ATOL}", ms=f"{c['ms']:.4f}", plain_ms=f"{c['plain_ms']:.4f}",
+            tol=f"1 bf16 step + {TOL_BF16_PROJ_ATOL} on <= {TOL_BF16_PROJ_SHARE} of them", ms=f"{c['ms']:.4f}",
+            plain_ms=f"{c['plain_ms']:.4f}",
             library_v0_ms=f"{v0_ms:.4f}", library_v1_ms=f"{v1_ms:.4f}", bound_ms=f"{c['bound_ms']:.4f}",
-            bound_by=c["by"])
+            bound_by=c["by"], tflops=f"{c['flops'] / c['ms'] / 1e9:.1f}",
+            share_of_bound=f"{c['bound_ms'] / c['ms']:.3f}")
     # kernel 5's row: its two launches of the probe's v2 (forward, reversed);
-    # kernel 6's: the fused form of the bf16 forward, v4's form beside it
+    # kernel 6's: the form on fp32 x of the bf16 forward, bf16 x beside it
     k5 = dict(shape=f"R{rows}", err=max(res["k5_forward"]["err"], res["k5_reversed"]["err"]),
               **{k: res["k5_forward"][k] + res["k5_reversed"][k] for k in ("ms", "plain_ms", "flops", "bytes")},
               library_ms=v0_ms)
@@ -777,7 +831,7 @@ def proj_case(rows, gen):
               library_v1_ms=v1_ms, bf16_x_ms=res["k6_bf16_x"]["ms"], bf16_x_bound_ms=res["k6_bf16_x"]["bound_ms"])
     for c in (k5, k6):
         c["bound_ms"] = bound_ms(c["flops"], c["bytes"], PEAK_BF16_FLOPS)[0]
-    return k5, k6
+    return k5, k6, dict(shape=f"R{rows}", **tanh)
 
 
 @torch.no_grad()
@@ -794,10 +848,10 @@ def phase_proj():
     reset_counts()
     v2()
     torch.cuda.synchronize()
-    n5 = counts()[4]
-    check(n5 == 2, f"the probe's v2 launched kernel 5 {n5} times, want 2")
+    n5, n_tanh = counts()[4], counts()[6]
+    check((n5, n_tanh) == (2, 2), f"the probe's v2 launched kernel 5 {n5} and the tanh pass {n_tanh} times, want 2")
     torch.cuda.empty_cache()
-    return [c[0] for c in cases], [c[1] for c in cases], n5
+    return [c[0] for c in cases], [c[1] for c in cases], [c[2] for c in cases], n5
 
 
 @torch.no_grad()
@@ -846,7 +900,7 @@ def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits):
     torch.cuda.synchronize()
     launches = counts()
     check(launches == EVAL_LAUNCHES["bfloat16"],
-          f"one bf16 forward launched {launches} kernels 1-6, want {EVAL_LAUNCHES['bfloat16']}")
+          f"one bf16 forward launched {launches} kernels, want {EVAL_LAUNCHES['bfloat16']}")
     logits = out.logits
     check(logits.dtype == torch.float32 and tuple(logits.shape) == (BATCH, FLAGSHIP["num_answers"]),
           f"bf16 logits {logits.dtype} {tuple(logits.shape)}")
@@ -865,7 +919,8 @@ def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits):
     say("eval bf16", batch=BATCH, logits_max_abs_err=f"{err:.3e}", rel_to_max_logit=f"{err / scale:.3e}",
         tol=f"{TOL_BF16_LOGITS}*max|logit|", max_abs_logit=f"{scale:.3e}", argmax_agreement=f"{agree:.4f}",
         flips=int(flips.sum().item()),
-        launches_per_forward=f"input_proj_both:{launches[5]},bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}",
+        launches_per_forward=f"input_proj_both:{launches[5]},tanh_to_bf16:{launches[6]},"
+                             f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}",
         forward_ms=f"{ms:.3f}", qa_per_s=f"{BATCH / ms * 1e3:.1f}")
     profile_run("eval bf16 profile", lambda: model(app, mot, q, qlen))
     return ms
@@ -927,7 +982,7 @@ def main():
     train_bf16_launches = phase_train(batch, "bfloat16")
     del batch
     torch.cuda.empty_cache()
-    k5_cases, k6_cases, n5 = phase_proj()
+    k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
 
     # kernel 1 once at each of its three shapes per flagship forward, kernel
     # 2 once per stream; kernels 3 and 4 once at each of the three shapes
@@ -966,11 +1021,19 @@ def main():
                      peak=PEAK_BF16_FLOPS),
         kernel_entry("input_proj_both", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:112", serve_bf16_launches[5], k6_cases[:1],
-                     "one launch, tanh fused, at R = 4096 (the bf16 forward at batch 256); R512 at batch 32; "
-                     "library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: the form without tanh (the "
-                     "bf16 train step's)", library=True, bf16_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
+                     "one call on fp32 x (the tanh pass, then the product) at R = 4096 (the bf16 forward at "
+                     "batch 256); R512 at batch 32; library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: "
+                     "the form on bf16 x (the bf16 train step's); tanh_to_bf16: the tanh pass alone",
+                     library=True, bf16_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
                      launches_train_bf16=train_bf16_launches[5], library_v1_ms=k6_cases[0]["library_v1_ms"],
-                     bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"]),
+                     bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"],
+                     tanh_to_bf16=dict(
+                         source="dualvgr_tpu_torch/csrc/input_proj.cu", replaces="benchmarks/proj_probe.py:124",
+                         launches=serve_bf16_launches[6], max_abs_err=tanh_cases[0]["err"],
+                         **{k: tanh_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                         per="one call on the R = 4096 x; library: torch.tanh(x, out=bf16); R512 at batch 32",
+                         shapes={c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                                 for c in tanh_cases})),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

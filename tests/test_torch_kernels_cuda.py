@@ -7,7 +7,8 @@ the JAX package, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-fp32 arithmetic, TF32 off. Tolerances: recurrence 1e-4 absolute; graph
+fp32 arithmetic, TF32 off. The tanh pass is compared bit for bit.
+Tolerances: recurrence 1e-4 absolute; graph
 cycle, model outputs and the training backward's gradients
 1e-3 * max(1, max|ref|) (fp32 sums in another order; the backward carries
 gradients over T steps and a product over 4H). Outputs in bf16 (kernels 5
@@ -258,15 +259,20 @@ def test_train_step_kernel_path_matches_plain_path(rs, cuda, unit_layers, graph_
         assert abs(norms_k[name] - v) <= 1e-3 * v, name
 
 
-def _close_bf16(a, b, atol, name):
-    """bf16 outputs: within one bf16 step of the reference plus ``atol``."""
+def _close_bf16(a, b, atol, name, max_share=1.0):
+    """bf16 outputs: within one bf16 step of the reference plus ``atol``, on
+    at most ``max_share`` of the elements."""
     assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape, name
-    steps, _, ok = compare(a, b, atol)
+    steps, share, ok = compare(a, b, atol)
     assert ok, f"{name}: {steps:.2f} bf16 steps beyond {atol}"
+    assert share <= max_share, f"{name}: {share:.2e} of the elements differ"
 
 
 @pytest.mark.parametrize("r,t,d,g", [
-    (37, 5, 40, 64),        # ragged row and column tiles, K not a multiple of 32
+    (37, 5, 40, 64),        # ragged row tile (M = 185), K = 40 < one 64-deep k-block
+    (37, 5, 72, 200),       # K not a multiple of 64; 4H = 200: an N tile straddles the directions
+    (1, 7, 72, 64),         # R = 1
+    (1, 16, 2048, 1536),    # R = 1 at the flagship widths
     (512, 16, 2048, 1536),  # the serving batch of 32
     (4096, 16, 2048, 1536), # the flagship batch of 256
 ])
@@ -275,27 +281,60 @@ def test_input_proj_kernels_match_plain(rs, cuda, r, t, d, g):
     w_f, w_b = _t(rs, cuda, g, d, scale=0.02), _t(rs, cuda, g, d, scale=0.02)
     b_f, b_b = _t(rs, cuda, g), _t(rs, cuda, g)
     n0 = (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches)
+    n_tanh = proj_kernel.tanh_to_bf16.launches
+    # about 1e-3 of the sums cross a rounding boundary in another order: at
+    # most 2e-3 of the elements, or 4 of a small output, may differ
+    share = max(2e-3, 4 / (t * r * g))
     for reverse in (False, True):
         got = proj_kernel.input_proj_one(x, w_f, b_f, reverse=reverse)
         torch.cuda.synchronize()
         _close_bf16(got, proj_kernel.input_proj_one_reference(x, w_f, b_f, reverse=reverse), 1e-5,
-                    f"kernel 5 reverse={reverse}")
+                    f"kernel 5 reverse={reverse}", share)
     x16 = torch.tanh(x).to(torch.bfloat16)
     for fuse, xin in ((True, x), (False, x16)):
         got = proj_kernel.input_proj_both(xin, w_f, b_f, w_b, b_b, fuse_tanh=fuse)
         torch.cuda.synchronize()
         want = proj_kernel.input_proj_both_reference(xin, w_f, b_f, w_b, b_b, fuse_tanh=fuse)
         for a, b, name in zip(got, want, ("xf", "xb_rev")):
-            _close_bf16(a, b, 1e-5, f"kernel 6 fuse_tanh={fuse} {name}")
+            _close_bf16(a, b, 1e-5, f"kernel 6 fuse_tanh={fuse} {name}", share)
     assert (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches) == (n0[0] + 2, n0[1] + 2)
+    # one tanh pass for each call on fp32 x: both of kernel 5's and the fused kernel 6's
+    assert proj_kernel.tanh_to_bf16.launches == n_tanh + 3
+
+
+@pytest.mark.parametrize("shape", [(37, 5, 40), (512, 16, 2048)])
+def test_tanh_pass_is_bit_exact(rs, cuda, shape):
+    """The tanh pass equals ``torch.tanh(x).to(bfloat16)`` bit for bit: the
+    same accurate tanhf, rounded to nearest even."""
+    x = _t(rs, cuda, *shape, scale=2.0)
+    before = proj_kernel.tanh_to_bf16.launches
+    got = proj_kernel.tanh_to_bf16(x)
+    torch.cuda.synchronize()
+    assert proj_kernel.tanh_to_bf16.launches == before + 1
+    want = proj_kernel.tanh_to_bf16_reference(x)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_input_proj_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     w, b = torch.zeros(64, 40, device=cuda), torch.zeros(64, device=cuda)
+    n0 = (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches,
+          proj_kernel.tanh_to_bf16.launches)
     with pytest.raises(TypeError):
         proj_kernel.input_proj_both(torch.zeros(3, 4, 40, device=cuda), w, b, w, b, fuse_tanh=False)
     with pytest.raises(ValueError, match="% 8"):
         proj_kernel.input_proj_one(torch.zeros(3, 4, 36, device=cuda), torch.zeros(64, 36, device=cuda), b)
+    # x neither contiguous nor 16-byte aligned: TMA and the 16-byte vectors refuse it
+    with pytest.raises(ValueError, match="contiguous"):
+        proj_kernel.input_proj_one(torch.zeros(4, 3, 40, device=cuda).transpose(0, 1), w, b)
+    for dtype, fuse in ((torch.float32, True), (torch.bfloat16, False)):
+        offset = torch.zeros(3 * 4 * 40 + 1, device=cuda, dtype=dtype)[1:].view(3, 4, 40)
+        with pytest.raises(ValueError, match="aligned"):
+            proj_kernel.input_proj_both(offset, w, b, w, b, fuse_tanh=fuse)
+    with pytest.raises(ValueError, match="aligned"):
+        proj_kernel.tanh_to_bf16(torch.zeros(3 * 4 * 40 + 1, device=cuda)[1:].view(3, 4, 40))
+    assert (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches,
+            proj_kernel.tanh_to_bf16.launches) == n0
 
 
 def test_mm_f32_keeps_an_fp32_output(rs, cuda):

@@ -9,8 +9,9 @@ here). So each routing of the port is held against its own JAX routing, on
 the same randomized weights and numpy inputs: ``use_kernels=False`` against
 flax with ``use_pallas=False``, ``use_kernels=True`` (the kernels' plain
 versions on the CPU: kernel 6's with tanh fused, kernel 1's with bf16
-gates) against flax with ``use_pallas=True`` under
-``pltpu.force_tpu_interpret_mode()``, at unit_layers x graph_layers in
+gates) against flax with ``use_pallas=True`` with its Pallas kernels in
+interpret mode as the JAX package's own tests run them
+(``jax_kernels_interpreted``), at unit_layers x graph_layers in
 {(1, 1), (2, 1), (1, 2)}, all seven outputs.
 
 Tolerance: atol 2e-5. The two sides round the same fp32 values to bf16 at
@@ -22,6 +23,7 @@ own bf16-vs-fp32 gap on the same inputs is at least 10x the tolerance in
 every output, so the test tells the bf16 path from the fp32 one.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -29,8 +31,10 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
+import dualvgr_tpu.ops.gat_pallas as gp
+import dualvgr_tpu.ops.lstm_pallas as lp
+import dualvgr_tpu.ops.lstm_pallas_train as lpt
 from dualvgr_tpu.models import DualVGR as JaxDualVGR
 from dualvgr_tpu_torch import build_model
 from dualvgr_tpu_torch.utils.weights import from_jax_variables
@@ -41,12 +45,28 @@ ATOL = 2e-5
 NODES = 4
 
 
+@contextlib.contextmanager
+def jax_kernels_interpreted():
+    """The JAX package's Pallas kernels in interpret mode on the CPU, the way
+    its own tests run them: kernels 1 and 2 through ``interpret=True``
+    partials (tests/test_pallas.py), the trainable pair through
+    ``lstm_pallas_train.INTERPRET`` (tests/test_pallas_train.py); all
+    restored on exit. (The TPU interpret mode,
+    ``pltpu.force_tpu_interpret_mode()``, simulates the chip with callbacks
+    and locks and can stall a test worker: every thread asleep on a futex.)"""
+    orig = lp.bilstm_pallas, gp.fused_gat_cycle, lpt.INTERPRET
+    lp.bilstm_pallas = functools.partial(orig[0], interpret=True)
+    gp.fused_gat_cycle = functools.partial(orig[1], interpret=True)
+    lpt.INTERPRET = True
+    try:
+        yield
+    finally:
+        lp.bilstm_pallas, gp.fused_gat_cycle, lpt.INTERPRET = orig
+
+
 def _apply(kw, variables, example, compute_dtype, use_pallas):
     model = JaxDualVGR(**kw, compute_dtype=compute_dtype, use_pallas=use_pallas)
-    if use_pallas:
-        with pltpu.force_tpu_interpret_mode():
-            out = model.apply(variables, *example, train=False)
-    else:
+    with jax_kernels_interpreted() if use_pallas else contextlib.nullcontext():
         out = model.apply(variables, *example, train=False)
     return {k: np.asarray(v) for k, v in out._asdict().items()}
 

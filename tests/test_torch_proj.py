@@ -10,8 +10,11 @@ and both tanh forms, at R a multiple of the kernels' ``block_r``. The
 outputs are bf16 and are compared for equality: both sides round the same
 operands to bf16, sum 32 exact products in fp32 and round once after the
 bias, and at these inputs no fp32 sum order moves a result across a bf16
-rounding boundary. The wrappers run the plain versions on CPU tensors and
-launch nothing.
+rounding boundary. The first step of both TPU kernels, ``tanh(x)`` rounded
+to bf16 (``benchmarks/proj_probe.py:79, 124``), is the port's tanh pass,
+whose plain version is held against ``jnp.tanh(x).astype(bfloat16)`` bit
+for bit on the same inputs. The wrappers run the plain versions on CPU
+tensors and launch nothing.
 """
 
 import numpy as np
@@ -79,6 +82,27 @@ def test_kernel6_reference_matches_pallas(data, fuse_tanh):
         assert torch.equal(got_b, proj_kernel.input_proj_one_reference(tx, args[2], args[3], reverse=True))
 
 
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+def test_tanh_pass_reference_matches_jax(data, scale):
+    """The plain tanh pass equals JAX's ``tanh`` rounded to bf16, bit for
+    bit (scale 3 puts most values in tanh's flat tails)."""
+    x = data[0] * scale
+    got = proj_kernel.tanh_to_bf16_reference(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == x.shape
+    np.testing.assert_array_equal(_bits(got), _bits(jnp.tanh(jnp.asarray(x)).astype(jnp.bfloat16)))
+
+
+def test_plain_versions_take_the_tanh_pass_first(data):
+    """Kernels 5 and 6 on fp32 x are the tanh pass, then the product on its
+    bf16 output: the two-step form the card runs."""
+    x, w_f, b_f, w_b, b_b = (torch.from_numpy(a) for a in data)
+    x16 = proj_kernel.tanh_to_bf16_reference(x)
+    two_step = proj_kernel.input_proj_both_reference(x16, w_f, b_f, w_b, b_b, fuse_tanh=False)
+    assert torch.equal(proj_kernel.input_proj_one_reference(x, w_b, b_b, reverse=True), two_step[1])
+    for got, want in zip(proj_kernel.input_proj_both_reference(x, w_f, b_f, w_b, b_b), two_step):
+        assert torch.equal(got, want)
+
+
 def test_one_rounding_after_the_bias(data):
     """The function rounds once, after the fp32 bias: a bf16 product rounded
     before the bias (what a bf16 ``torch.matmul`` returns) differs."""
@@ -93,14 +117,19 @@ def test_one_rounding_after_the_bias(data):
 
 def test_wrappers_run_the_plain_versions_on_cpu(data):
     x, w_f, b_f, w_b, b_b = (torch.from_numpy(a) for a in data)
-    n0 = (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches)
+    n0 = (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches,
+          proj_kernel.tanh_to_bf16.launches)
+    assert torch.equal(proj_kernel.tanh_to_bf16(x), proj_kernel.tanh_to_bf16_reference(x))
     assert torch.equal(proj_kernel.input_proj_one(x, w_f, b_f, reverse=True),
                        proj_kernel.input_proj_one_reference(x, w_f, b_f, reverse=True))
     for fuse, xin in ((True, x), (False, torch.tanh(x).to(torch.bfloat16))):
         got = proj_kernel.input_proj_both(xin, w_f, b_f, w_b, b_b, fuse_tanh=fuse)
         want = proj_kernel.input_proj_both_reference(xin, w_f, b_f, w_b, b_b, fuse_tanh=fuse)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches) == n0
+    assert (proj_kernel.input_proj_one.launches, proj_kernel.input_proj_both.launches,
+            proj_kernel.tanh_to_bf16.launches) == n0
     # the wrappers record nothing for autograd
+    with pytest.raises(RuntimeError, match="autograd"):
+        proj_kernel.tanh_to_bf16(x.clone().requires_grad_())
     with pytest.raises(RuntimeError, match="autograd"):
         proj_kernel.input_proj_both(x, w_f.requires_grad_(), b_f, w_b, b_b)

@@ -10,7 +10,9 @@
   ``use_pallas=False``, ``use_kernels=True`` (on the CPU, the plain
   versions of kernel 6 without tanh and of kernels 3 and 4 with bf16 gates
   in the appearance op; fp32 gates through ``stream_roundtrip`` in the
-  question encoders) against ``use_pallas=True`` in Pallas interpret mode.
+  question encoders) against ``use_pallas=True`` with its Pallas kernels in
+  interpret mode (``jax_kernels_interpreted``, as the JAX package's own
+  tests run them).
   Tolerances: the loss within 1e-6 relative, each module's gradient norm
   within 1e-5 relative (measured: 1e-7 and 8e-7). The JAX package's own
   bf16-vs-fp32 gap (its fp32 XLA routing, which its fp32 kernel routing
@@ -21,7 +23,8 @@
   question encoders and of ContextSelfAttn (whose gradient is 1e-4 in
   norm) then move by 2e-4 to 2e-3 relative, in either routing.
 * ``appearance_bilstm_train(stream_dtype=bf16)`` against the JAX
-  ``appearance_bilstm_train(stream_dtype="bfloat16")`` in interpret mode:
+  ``appearance_bilstm_train(stream_dtype="bfloat16")``, its kernels in
+  interpret mode:
   the final states and the gradients of W_ih, the bias and W_hh, atol 1e-5
   (measured 5e-7), each at least 10x below the JAX bf16-vs-fp32 gap.
 """
@@ -35,7 +38,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import dualvgr_tpu.ops.lstm_pallas_train as lpt
 from dualvgr_tpu import train_lib as jtrain
@@ -46,6 +48,7 @@ from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both
 from dualvgr_tpu_torch.utils.weights import from_jax_variables
 
 from test_torch_model import dims
+from test_torch_model_bf16 import jax_kernels_interpreted
 from test_torch_train import ALPHA, BETA, LR, batch, jax_state, port_model, train_variables
 
 SEED = 3
@@ -60,21 +63,6 @@ def module_norms(named_grads):
         top = k.split(".")[0]
         sq[top] = sq.get(top, 0.0) + float((np.asarray(g, np.float64) ** 2).sum())
     return {k: v ** 0.5 for k, v in sq.items()}
-
-
-@contextlib.contextmanager
-def _interpret(use_pallas):
-    """Pallas interpret mode for the JAX kernel routing: the trainable pair's
-    flag and the context for the other kernels."""
-    if not use_pallas:
-        yield
-        return
-    with pltpu.force_tpu_interpret_mode():
-        lpt.INTERPRET = True
-        try:
-            yield
-        finally:
-            lpt.INTERPRET = False
 
 
 def _jax_loss_and_grads(jmodel, jstate, data):
@@ -108,7 +96,7 @@ def jax_run(compute_dtype, use_pallas):
         opt = jtrain.make_optimizer(LR, 10)
         state = jax_state(model, variables, opt)
         losses = []
-        with _interpret(use_pallas):
+        with jax_kernels_interpreted() if use_pallas else contextlib.nullcontext():
             for _ in range(2):
                 state, metrics = jtrain.train_step(state, data, model=model, optimizer=opt, alpha=ALPHA, beta=BETA)
                 losses.append(float(metrics["loss"]))
@@ -161,7 +149,7 @@ def test_appearance_op_bf16_matches_pallas_interpret(rng):
                                             stream_dtype=sd)
             return ((f - tgt) ** 2).sum(), f
 
-        with _interpret(True):
+        with jax_kernels_interpreted():
             (_, final), grads = jax.value_and_grad(jloss, has_aux=True)(tuple(jnp.asarray(w[k]) for k in order))
         return np.asarray(final), [np.asarray(g) for g in grads]
 
