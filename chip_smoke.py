@@ -54,6 +54,13 @@ streaming path):
     v0-v4, one line, and one call of its v2, whose 2 launches of kernel 5
     (and 2 of the tanh pass) are counted.
 
+Kernels 1 and 3 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
+shape, their launch plan (cluster size, the clusters the card keeps
+resident and those launched, the SMs left idle, shared memory per CTA,
+rows per tile, items per cluster) and, as per_block_recorded_ms, their
+time before the cluster redesign as PERF.md records it (not measured by
+this run); at the appearance shape, the SM clock, power draw and power
+limit that ``nvidia-smi`` reads while the kernel runs back to back.
 Then one JSON line with the kernel table and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
 port's own seeded init. TF32 is switched off for matmuls and for cuDNN, so
@@ -76,12 +83,16 @@ from dualvgr_tpu_torch import (
     BatchingEngine, build_model, build_predict_fn, create_train_state, make_optimizer, train_step,
 )
 from dualvgr_tpu_torch.bench import proj_probe
+from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
 from dualvgr_tpu_torch.config import cfg_from_file
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle, gat_cycle_reference
 from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
-from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence, bilstm_recurrence_reference
+from dualvgr_tpu_torch.ops.lstm_kernel import (
+    active_clusters, bilstm_recurrence, bilstm_recurrence_reference, gate_dtype_code, launch_plan,
+    library_smem_bytes,
+)
 from dualvgr_tpu_torch.ops.lstm_train_kernel import (
     bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd, bilstm_train_fwd_reference,
 )
@@ -180,6 +191,47 @@ def bound_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# kernels 1 and 3 per shape in the design before the clusters (one block
+# per row tile and direction, W_hh streamed from L2 every step), as PERF.md
+# records them (this script, H100 80GB HBM3 at 700 W); printed in the phase
+# lines as per_block_recorded_ms, never in the kernels line, which holds
+# only this run's measurements
+PER_BLOCK_RECORDED_MS = {
+    "bilstm_recurrence": {"appearance": 6.38, "question_outputs": 1.48, "question_final": 1.49,
+                          "appearance_bf16": 6.57, "question_outputs_bf16": 1.48, "question_final_bf16": 1.49},
+    "bilstm_train_fwd": {"appearance": 7.40, "question_outputs": 1.54, "question_final": 1.54,
+                         "appearance_bf16": 6.62},
+}
+
+
+def cluster_plan(prefix, gates):
+    """The launch plan kernel ``prefix`` (1 or 3) takes for ``gates`` (T,
+    R, 4H): cluster size, the clusters the card keeps resident, the
+    clusters launched, the SMs they leave idle, shared memory per CTA, rows
+    per tile and the most items a cluster walks."""
+    _, r, g = gates.shape
+    lib, code = _build.load(f"{prefix}.cu"), gate_dtype_code(prefix, gates)
+    plan = launch_plan(lib, prefix, r, g // 4, code)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem = library_smem_bytes(lib, prefix, g // 4)
+    check(smem == plan.smem_bytes,
+          f"{prefix}: the plan's {plan.smem_bytes} bytes of shared memory, the build's {smem}")
+    return dict(cluster=plan.cluster, active_clusters=active_clusters(lib, prefix, g // 4, code),
+                clusters=plan.clusters, idle_sms=sms - plan.cluster * plan.clusters,
+                smem_bytes=smem, rows_per_tile=plan.rows_per_tile,
+                items_per_cluster=plan.tiles_per_cluster)
+
+
+def fmt_plan(plan):
+    return ",".join(f"{k}:{v}" for k, v in plan.items())
+
+
+def under_load(fn):
+    """``nvidia-smi``'s SM clock, power draw and power limit while ``fn``
+    runs back to back for a second (medians past the ramp)."""
+    return dict(zip(("sm_mhz", "power_w", "limit_w"), clocks_under_load(fn)))
+
+
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -260,6 +312,9 @@ def lstm_case(name, enc, x, lengths, with_outputs, gates=None):
 
     ms = time_ms(lambda: bilstm_recurrence(*args, with_outputs=with_outputs), 10)
     plain_ms = time_ms(lambda: bilstm_recurrence_reference(*args, with_outputs=with_outputs), 3)
+    plan = cluster_plan("bilstm_recurrence", xf)
+    if name.startswith("appearance"):
+        say(f"bilstm {name} under load", **under_load(lambda: bilstm_recurrence(*args, with_outputs=with_outputs)))
     t_total, r, g = xf.shape
     h = g // 4
     # what these inputs need: a padded step leaves the state as it was, so
@@ -277,9 +332,10 @@ def lstm_case(name, enc, x, lengths, with_outputs, gates=None):
     if gates is not None:
         say(f"bilstm {name}", T=t_total, R=r, H=h, gates="bf16", masked=lengths is not None,
             outputs=with_outputs, max_abs_err=f"{max(errs):.3e}", tol=f"1 bf16 step + {TOL_LSTM}",
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+            ms=f"{ms:.4f}", per_block_recorded_ms=PER_BLOCK_RECORDED_MS["bilstm_recurrence"][name],
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by, plan=fmt_plan(plan))
         return dict(shape=name, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms, flops=flops,
-                    bytes=nbytes)
+                    bytes=nbytes, plan=plan)
 
     lstm = torch.nn.LSTM(x.shape[-1], h, batch_first=True, bidirectional=True).to(x.device)
     with torch.no_grad():
@@ -295,10 +351,11 @@ def lstm_case(name, enc, x, lengths, with_outputs, gates=None):
     with torch.no_grad():
         library_ms = time_ms(lambda: lstm(lib_in), 5)
     say(f"bilstm {name}", T=t_total, R=r, H=h, masked=lengths is not None, outputs=with_outputs,
-        max_abs_err=f"{max(errs):.3e}", tol=TOL_LSTM, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{library_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+        max_abs_err=f"{max(errs):.3e}", tol=TOL_LSTM, ms=f"{ms:.4f}",
+        per_block_recorded_ms=PER_BLOCK_RECORDED_MS["bilstm_recurrence"][name], plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by, plan=fmt_plan(plan))
     return dict(shape=name, err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bms, flops=flops, bytes=nbytes)
+                bound_ms=bms, flops=flops, bytes=nbytes, plan=plan)
 
 
 @torch.no_grad()
@@ -593,6 +650,10 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
     del got, want
 
     fwd_ms = time_ms(lambda: bilstm_train_fwd(*fargs, with_outputs=with_outputs), 10)
+    plan = cluster_plan("bilstm_train_fwd", xf)
+    if name.startswith("appearance"):
+        say(f"bilstm_train {name} under load",
+            **under_load(lambda: bilstm_train_fwd(*fargs, with_outputs=with_outputs)))
     fwd_plain_ms = time_ms(lambda: bilstm_train_fwd_reference(*fargs, with_outputs=with_outputs), 3)
     bwd_ms = time_ms(lambda: bilstm_train_bwd(*bargs), 10)
     bwd_plain_ms = time_ms(lambda: bilstm_train_bwd_reference(*bargs), 3)
@@ -620,13 +681,15 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
     say(f"bilstm_train {name}", T=t_total, R=r, H=h, gates="bf16" if gates is not None else "fp32",
         masked=lengths is not None, outputs=with_outputs,
         fwd_err=f"{fwd_err:.3e}", fwd_tol=TOL_LSTM, bwd_err=f"{bwd_err:.3e}", bwd_tol=f"{bwd_tol:.3e}",
-        fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_cudnn_ms=lib_fwd_ms,
+        fwd_ms=f"{fwd_ms:.4f}", fwd_per_block_recorded_ms=PER_BLOCK_RECORDED_MS["bilstm_train_fwd"][name],
+        fwd_plan=fmt_plan(plan),
+        fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_cudnn_ms=lib_fwd_ms,
         fwd_bound_ms=f"{f_bound:.4f}", fwd_bound_by=f_by,
         bwd_ms=f"{bwd_ms:.4f}", bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_cudnn_ms=lib_bwd_ms,
         bwd_bound_ms=f"{b_bound:.4f}", bwd_bound_by=b_by)
     return (
         dict(shape=name, err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
-             bound_ms=f_bound, flops=f_flops, bytes=f_bytes),
+             bound_ms=f_bound, flops=f_flops, bytes=f_bytes, plan=plan),
         dict(shape=name, err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
              bound_ms=b_bound, flops=b_flops, bytes=b_bytes),
     )
@@ -947,6 +1010,10 @@ def kernel_entry(name, source, replaces, launches, cases, per, library, bf16_cas
     shapes = {c["shape"]: {k: c[k] for k in keys} for c in cases}
     shapes.update({c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms") if c.get(k) is not None}
                    for c in bf16_cases})
+    # kernels 1 and 3: each shape's launch plan
+    for c in (*cases, *bf16_cases):
+        if "plan" in c:
+            shapes[c["shape"]]["plan"] = c["plan"]
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max(c["err"] for c in (*cases, *bf16_cases)), ms=total("ms"),
                 plain_ms=total("plain_ms"), bound_ms=bms, bound_by=by,

@@ -83,10 +83,12 @@ def build_variants(workdir: Path) -> dict[str, ctypes.CDLL]:
 
 
 def clocks_under_load(fn, seconds=1.0):
-    """(median SM clock in MHz, median power draw in W) sampled by
-    ``nvidia-smi`` while ``fn`` runs back to back for ``seconds``."""
+    """(median SM clock in MHz, median power draw in W, power limit in W)
+    sampled by ``nvidia-smi`` while ``fn`` runs back to back for
+    ``seconds``."""
     smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "-lms", "50"],
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader,nounits",
+         "-lms", "50"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     try:
         end = time.perf_counter() + seconds
@@ -99,7 +101,7 @@ def clocks_under_load(fn, seconds=1.0):
         out, _ = smi.communicate(timeout=30)
     rows = [[float(v) for v in line.split(",")] for line in out.splitlines() if line.strip()]
     rows = rows[len(rows) // 4:]  # past the ramp
-    return statistics.median(r[0] for r in rows), statistics.median(r[1] for r in rows)
+    return tuple(statistics.median(r[i] for r in rows) for i in range(3))
 
 
 @torch.no_grad()
@@ -133,7 +135,7 @@ def main():
                     proj_probe.time_ms(lambda: input_proj_both(*args, fuse_tanh=False), 20))
             flops = 2 * x16.numel() * 2 * w_f.shape[0]
             _build._libs[SOURCE] = libs["committed"]
-            mhz, watts = clocks_under_load(lambda: input_proj_both(*args, fuse_tanh=False))
+            mhz, watts, _ = clocks_under_load(lambda: input_proj_both(*args, fuse_tanh=False))
             print(f"[R{rows}] committed under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
             for name, ms in times.items():
                 note = " (timing only: epilogue cut)" if VARIANTS[name][2] else ""

@@ -3,8 +3,9 @@
 Each source is compiled on its own by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, which the kernel modules load with
 ``ctypes``. The libraries go to ``dualvgr_tpu_torch/_build/`` (listed in
-.gitignore), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. ``build`` starts
+.gitignore), named by a hash of the source, the headers of ``csrc/`` and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is loaded as it is. ``build`` starts
 one ``nvcc`` per source, all together, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -44,8 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<source>`` lives: named by a hash
+    of the source, every header in ``csrc/`` (a source may include any of
+    them) and the flags."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -14,23 +14,148 @@ the gates' dtype (``lstm_pallas.py:155-158``); W_hh stays fp32.
 On a CPU tensor the wrapper runs ``bilstm_recurrence_reference``, the
 plain PyTorch loop; on a CUDA tensor it launches
 ``csrc/bilstm_recurrence.cu`` or raises. What bounds the kernel on the H100
-and what its design does about it is written at the top of that source:
-one block per (row tile, direction) loops over T with h and c in shared
-memory, and streams W_hh (2.36 MB per direction at H=384) from L2 on every
-step; the tile shape (16 rows, or 4 when R is too small to give every SM a
-block) is chosen at launch. The work is fp32 FMA on the CUDA cores, so the
-bound is set by operations.
+and what its design does about it is written in ``csrc/bilstm_cluster.cuh``,
+which kernel 3 shares: each CTA of a thread-block cluster keeps its
+slice of W_hh in shared memory for the whole launch, persistent clusters
+walk (direction, row tile) items over all T steps, and the new h goes to
+every CTA of the cluster through distributed shared memory. The launch
+plan is ``recurrence_plan``, here, so the CPU tests cover it. The work is
+fp32 FMA on the CUDA cores, so the bound is set by operations.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from dualvgr_tpu_torch.ops import _build
 
-MAX_HIDDEN = 384  # kTx * kUnitsPerThread in the source
+MAX_HIDDEN = 384  # kMaxHidden in csrc/bilstm_cluster.cuh
+
+# The cluster kernel's build constants (csrc/bilstm_cluster.cuh), which the
+# plan mirrors: rows per tile (kRows), gate columns a CTA holds (kGateCols,
+# so kGateCols / 4 hidden units), the buffers of the product's partial sums
+# and their row stride (kRedBuffers, kRedStride), the cluster sizes tried,
+# and the shared memory a block may use on the H100 (kSmemLimit). The CPU
+# tests read the header's values against these, and the card tests hold
+# ``smem_bytes`` against the libraries' own (``<prefix>_smem_bytes``).
+ROWS_PER_TILE = 16
+GATE_COLS = 96
+RED_BUFFERS, RED_STRIDE = 4, GATE_COLS + 16
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+SMEM_LIMIT = 232_448
+
+
+@dataclass(frozen=True)
+class RecurrencePlan:
+    """How one launch of kernel 1 or 3 spreads over the card: ``clusters``
+    clusters of ``cluster`` CTAs; each CTA owns ``units`` hidden units (the
+    last ones fewer, or none); each cluster walks at most
+    ``tiles_per_cluster`` of the ``2 * tiles`` (direction, row tile) items;
+    ``smem_bytes`` of dynamic shared memory per CTA."""
+
+    cluster: int
+    units: int
+    rows_per_tile: int
+    tiles: int
+    clusters: int
+    tiles_per_cluster: int
+    smem_bytes: int
+
+
+def smem_bytes(hidden, padded):
+    """One CTA's shared memory: two mbarriers (16 bytes), then in fp32 the
+    W slice (GATE_COLS columns of H + 4), h twice (rows of the ``padded`` =
+    cluster x units hidden size), the product's partial sums (RED_BUFFERS x
+    rows of RED_STRIDE) and the staged h slice twice (rows of GATE_COLS / 4)."""
+    rows = ROWS_PER_TILE
+    return 16 + 4 * (GATE_COLS * (hidden + 4) + 2 * rows * padded + RED_BUFFERS * rows * RED_STRIDE
+                     + 2 * rows * GATE_COLS // 4)
+
+
+def cluster_shape(hidden):
+    """``(cluster, units)``: the smallest cluster whose CTAs' slices hold
+    all ``hidden`` units, each CTA at most GATE_COLS / 4 of them, a
+    multiple of 4 (the h exchange moves 16 bytes a store)."""
+    if hidden <= 0 or hidden % 4 or hidden > MAX_HIDDEN:
+        raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
+    for cluster in CLUSTER_SIZES:
+        units = 4 * -(-hidden // (4 * cluster))
+        if units <= GATE_COLS // 4:
+            return cluster, units
+    raise ValueError(f"hidden size {hidden} needs more than {CLUSTER_SIZES[-1]} CTAs")
+
+
+def recurrence_plan(rows, hidden, active_clusters):
+    """The launch plan of kernels 1 and 3 for R = ``rows``, H = ``hidden``
+    on a card that keeps ``active_clusters`` clusters resident at once: as
+    many clusters as that, or as there are items, walk the 2 x ceil(R /
+    ROWS_PER_TILE) items between them (``cluster_items``)."""
+    if rows <= 0:
+        raise ValueError(f"rows must be positive, got {rows}")
+    if active_clusters < 1:
+        raise RuntimeError(f"the card keeps no cluster of the recurrence resident (H = {hidden})")
+    cluster, units = cluster_shape(hidden)
+    tiles = -(-rows // ROWS_PER_TILE)
+    clusters = min(active_clusters, 2 * tiles)
+    return RecurrencePlan(cluster=cluster, units=units, rows_per_tile=ROWS_PER_TILE, tiles=tiles,
+                          clusters=clusters, tiles_per_cluster=-(-2 * tiles // clusters),
+                          smem_bytes=smem_bytes(hidden, cluster * units))
+
+
+def cta_units(plan, hidden, rank):
+    """The hidden units CTA ``rank`` of a cluster owns, as the kernel
+    computes them."""
+    unit0 = rank * plan.units
+    return range(min(unit0, hidden), min(unit0 + plan.units, hidden))
+
+
+def cluster_items(plan, c):
+    """The (direction, row tile) items cluster ``c`` walks, in order, as
+    the kernel computes them."""
+    total = 2 * plan.tiles
+    return [divmod(i, plan.tiles) for i in range(c * total // plan.clusters, (c + 1) * total // plan.clusters)]
+
+
+_active: dict = {}
+
+
+def active_clusters(lib, prefix, hidden, code):
+    """How many clusters of ``<prefix>``'s kernel in ``lib`` the card keeps
+    resident at once (``cudaOccupancyMaxActiveClusters``), asked once per
+    library, H and gate type. Raises if the card refuses the cluster."""
+    key = (id(lib), prefix, hidden, code)
+    if key not in _active:
+        cluster, units = cluster_shape(hidden)
+        fn = getattr(lib, f"{prefix}_active_clusters")
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+        n = fn(hidden, cluster, units, code)
+        if n <= 0:
+            raise RuntimeError(f"{prefix}: the card keeps no cluster of {cluster} CTAs resident "
+                               f"(H = {hidden}; cudaError {-n})")
+        _active[key] = n
+    return _active[key]
+
+
+def library_smem_bytes(lib, prefix, hidden):
+    """The shared memory per CTA that ``<prefix>``'s kernel in ``lib``
+    launches with at hidden size ``hidden`` (the build's own formula)."""
+    cluster, units = cluster_shape(hidden)
+    fn = getattr(lib, f"{prefix}_smem_bytes")
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn(hidden, cluster, units)
+
+
+def launch_plan(lib, prefix, rows, hidden, code):
+    """The plan for one launch of ``<prefix>_launch`` in ``lib``."""
+    return recurrence_plan(rows, hidden, active_clusters(lib, prefix, hidden, code))
+
+
+def plan_args(plan):
+    """The plan's numbers in the order the C entries take them."""
+    return plan.cluster, plan.units, plan.rows_per_tile, plan.clusters
 
 
 def _lstm_step(gates, c):
@@ -122,11 +247,15 @@ def gate_dtype_code(name, t):
     return GATE_DTYPES[t.dtype]
 
 
-def _launch_fn():
-    fn = _build.load("bilstm_recurrence.cu").bilstm_recurrence_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def launch_fn(source, prefix, n_ptrs):
+    """``(library, <prefix>_launch)`` of ``csrc/<source>``: ``n_ptrs``
+    pointers, T, R, H, the gate type and the plan's four numbers, then the
+    stream."""
+    lib = _build.load(source)
+    fn = getattr(lib, f"{prefix}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return lib, fn
 
 
 def _check(name, t, shape, device, dtype=torch.float32):
@@ -177,10 +306,12 @@ def bilstm_recurrence(
     outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=xproj_f.dtype) if with_outputs else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launch_fn()(
+        lib, fn = launch_fn("bilstm_recurrence.cu", "bilstm_recurrence", 7)
+        plan = launch_plan(lib, "bilstm_recurrence", r, hidden, code)
+        err = fn(
             xproj_f.data_ptr(), xproj_b_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
             lens_ptr, final.data_ptr(), outs.data_ptr() if with_outputs else None,
-            t_total, r, hidden, code, stream,
+            t_total, r, hidden, code, *plan_args(plan), stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_recurrence launch failed: cudaError {err}")

@@ -37,7 +37,7 @@ import torch
 
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.lstm_kernel import (
-    MAX_HIDDEN, _check, gate_dtype_code, recurrence_loop, refuse_autograd,
+    MAX_HIDDEN, _check, gate_dtype_code, launch_fn, launch_plan, plan_args, recurrence_loop, refuse_autograd,
 )
 
 
@@ -141,10 +141,12 @@ def bilstm_train_fwd(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: 
     hprev, cprev = (torch.empty((t_total, r, 2 * hidden), device=dev, dtype=torch.float32) for _ in range(2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launch_fn("bilstm_train_fwd.cu", "bilstm_train_fwd_launch", 9)(
+        lib, fn = launch_fn("bilstm_train_fwd.cu", "bilstm_train_fwd", 9)
+        plan = launch_plan(lib, "bilstm_train_fwd", r, hidden, code)
+        err = fn(
             xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths),
             final.data_ptr(), _ptr(outs), hprev.data_ptr(), cprev.data_ptr(),
-            t_total, r, hidden, code, stream,
+            t_total, r, hidden, code, *plan_args(plan), stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_train_fwd launch failed: cudaError {err}")

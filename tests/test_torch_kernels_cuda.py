@@ -52,6 +52,7 @@ def _t(rs, dev, *shape, scale=1.0):
     (40, 9, 384, False, False),  # the flagship hidden width
     (19, 12, 100, True, False),  # hidden not a multiple of the unit lanes
     (256, 24, 384, True, True),  # the question encoders' shape
+    (4096, 16, 384, False, False),  # the appearance encoder: more items than clusters
 ])
 def test_recurrence_kernel_matches_plain(rs, cuda, r, t, h, masked, with_outputs):
     g = 4 * h
@@ -80,6 +81,52 @@ def test_recurrence_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         big = torch.zeros(2, 2, 4 * 388, device=cuda)
         lstm_kernel.bilstm_recurrence(big, big, torch.zeros(388, 4 * 388, device=cuda),
                                       torch.zeros(388, 4 * 388, device=cuda))
+
+
+def test_cluster_kernels_are_deterministic(rs, cuda):
+    """Two launches on the same inputs give the same bits: the cluster
+    kernels sum in a fixed order and use no atomics."""
+    r, t, h = 1100, 7, 384
+    g = 4 * h
+    xf, xb = _t(rs, cuda, t, r, g), _t(rs, cuda, t, r, g)
+    wf, wb = _t(rs, cuda, h, g, scale=0.1), _t(rs, cuda, h, g, scale=0.1)
+    lens = torch.from_numpy(rs.randint(1, t + 1, (r,)).astype(np.int32)).to(cuda)
+    for fn in (lstm_kernel.bilstm_recurrence, lstm_train_kernel.bilstm_train_fwd):
+        runs = [fn(xf, xb, wf, wb, lens, with_outputs=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            if a is not None:
+                assert torch.equal(a, b)
+
+
+def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
+    """The C entry checks the plan's numbers against its build and returns
+    cudaErrorInvalidValue (1) for any it cannot run; nothing launches."""
+    r, t, h = 40, 3, 384
+    xf = _t(rs, cuda, t, r, 4 * h)
+    w = _t(rs, cuda, h, 4 * h, scale=0.1)
+    final = torch.empty(r, 2 * h, device=cuda)
+    lib, fn = lstm_kernel.launch_fn("bilstm_recurrence.cu", "bilstm_recurrence", 7)
+    plan = lstm_kernel.launch_plan(lib, "bilstm_recurrence", r, h, 0)
+    good = lstm_kernel.plan_args(plan)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (xf.data_ptr(), xf.data_ptr(), w.data_ptr(), w.data_ptr(), None, final.data_ptr(), None)
+    for bad in ((8,) + good[1:], (16, 20) + good[2:], good[:2] + (8, good[3]), good[:3] + (0,),
+                good[:3] + (2 * plan.tiles + 1,)):
+        assert fn(*ptrs, t, r, h, 0, *bad, stream) == 1, bad
+    assert fn(*ptrs, t, r, h, 0, *good, stream) == 0
+    torch.cuda.synchronize()
+
+
+def test_cluster_plan_shared_memory_is_the_builds(cuda):
+    """The plan's shared memory per CTA (``lstm_kernel.smem_bytes``) is what
+    each cluster library launches with, at every H it takes."""
+    for source, prefix in (("bilstm_recurrence.cu", "bilstm_recurrence"),
+                           ("bilstm_train_fwd.cu", "bilstm_train_fwd")):
+        lib = lstm_kernel._build.load(source)
+        for h in range(4, lstm_kernel.MAX_HIDDEN + 1, 4):
+            want = lstm_kernel.recurrence_plan(16, h, 1).smem_bytes
+            assert lstm_kernel.library_smem_bytes(lib, prefix, h) == want, (prefix, h)
 
 
 @pytest.mark.parametrize("b,n,d,heads,broadcast", [
@@ -138,7 +185,8 @@ def _close(a, b, tol, name):
     (40, 9, 384, False, False),   # the flagship hidden width, final only
     (19, 12, 100, True, False),   # hidden not a multiple of the unit lanes
     (256, 24, 384, True, True),   # the question encoders' shape
-    (1100, 6, 384, True, True),   # enough rows for the 16-row tile, ragged
+    (1100, 6, 384, True, True),   # more items than clusters, ragged
+    (4096, 16, 384, False, False),  # the appearance encoder
 ])
 def test_train_kernels_match_plain(rs, cuda, r, t, h, masked, with_outputs):
     g = 4 * h
