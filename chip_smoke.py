@@ -54,13 +54,15 @@ streaming path):
     v0-v4, one line, and one call of its v2, whose 2 launches of kernel 5
     (and 2 of the tanh pass) are counted.
 
-Kernels 1 and 3 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
+Kernels 1, 3 and 4 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
 shape, their launch plan (cluster size, the clusters the card keeps
 resident and those launched, the SMs left idle, shared memory per CTA,
-rows per tile, items per cluster) and, as per_block_recorded_ms, their
-time before the cluster redesign as PERF.md records it (not measured by
-this run); at the appearance shape, the SM clock, power draw and power
-limit that ``nvidia-smi`` reads while the kernel runs back to back.
+checked against the library's own count, rows per tile, items per
+cluster) and, as per_block_recorded_ms, their time before the cluster
+redesign as PERF.md records it (not measured by this run); kernel 4 also
+its registers and spills as ptxas reported them; at the appearance shape,
+the SM clock, power draw and power limit that ``nvidia-smi`` reads while
+kernel 1 or 3 runs back to back.
 Then one JSON line with the kernel table and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
 port's own seeded init. TF32 is switched off for matmuls and for cuDNN, so
@@ -90,8 +92,8 @@ from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle, gat_cycle_reference
 from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
 from dualvgr_tpu_torch.ops.lstm_kernel import (
-    active_clusters, bilstm_recurrence, bilstm_recurrence_reference, gate_dtype_code, launch_plan,
-    library_smem_bytes,
+    active_clusters, backward_plan, bilstm_recurrence, bilstm_recurrence_reference, gate_dtype_code, launch_plan,
+    library_smem_bytes, recurrence_plan,
 )
 from dualvgr_tpu_torch.ops.lstm_train_kernel import (
     bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd, bilstm_train_fwd_reference,
@@ -201,17 +203,23 @@ PER_BLOCK_RECORDED_MS = {
                           "appearance_bf16": 6.57, "question_outputs_bf16": 1.48, "question_final_bf16": 1.49},
     "bilstm_train_fwd": {"appearance": 7.40, "question_outputs": 1.54, "question_final": 1.54,
                          "appearance_bf16": 6.62},
+    "bilstm_train_bwd": {"appearance": 17.57, "question_outputs": 2.69, "question_final": 2.66,
+                         "appearance_bf16": 15.43},
 }
+# the compiler's report of each source built by this run (phase build)
+BUILD_REPORTS: dict = {}
 
 
 def cluster_plan(prefix, gates):
-    """The launch plan kernel ``prefix`` (1 or 3) takes for ``gates`` (T,
-    R, 4H): cluster size, the clusters the card keeps resident, the
-    clusters launched, the SMs they leave idle, shared memory per CTA, rows
-    per tile and the most items a cluster walks."""
+    """The launch plan kernel ``prefix`` (1, 3 or 4) takes for ``gates``
+    (T, R, 4H): cluster size, the clusters the card keeps resident, the
+    clusters launched, the SMs they leave idle, shared memory per CTA
+    (checked against the library's own count), rows per tile and the most
+    items a cluster walks."""
     _, r, g = gates.shape
     lib, code = _build.load(f"{prefix}.cu"), gate_dtype_code(prefix, gates)
-    plan = launch_plan(lib, prefix, r, g // 4, code)
+    plan = launch_plan(lib, prefix, r, g // 4, code,
+                       plan=backward_plan if prefix == "bilstm_train_bwd" else recurrence_plan)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     smem = library_smem_bytes(lib, prefix, g // 4)
     check(smem == plan.smem_bytes,
@@ -220,6 +228,13 @@ def cluster_plan(prefix, gates):
                 clusters=plan.clusters, idle_sms=sms - plan.cluster * plan.clusters,
                 smem_bytes=smem, rows_per_tile=plan.rows_per_tile,
                 items_per_cluster=plan.tiles_per_cluster)
+
+
+def ptxas_summary(source):
+    """Registers and spill stores of each kernel in ``source`` as ptxas
+    reported them when this run built it."""
+    lines = [ln.strip() for ln in BUILD_REPORTS.get(source, "").splitlines() if "Used" in ln or "spill" in ln]
+    return " | ".join(lines) or "not built by this run"
 
 
 def fmt_plan(plan):
@@ -264,6 +279,7 @@ def phase_device():
 
 def phase_build():
     secs, reports = _build.build_all()
+    BUILD_REPORTS.update(reports)
     say("build", seconds=f"{secs:.2f}", compiled=sorted(reports))
     for src, text in reports.items():
         for line in text.splitlines():
@@ -656,6 +672,7 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
             **under_load(lambda: bilstm_train_fwd(*fargs, with_outputs=with_outputs)))
     fwd_plain_ms = time_ms(lambda: bilstm_train_fwd_reference(*fargs, with_outputs=with_outputs), 3)
     bwd_ms = time_ms(lambda: bilstm_train_bwd(*bargs), 10)
+    bwd_plan = cluster_plan("bilstm_train_bwd", xf)
     bwd_plain_ms = time_ms(lambda: bilstm_train_bwd_reference(*bargs), 3)
     lib_fwd_ms, lib_bwd_ms = cudnn_train_ms(enc, x, lengths, with_outputs, gen) if gates is None else (None, None)
 
@@ -685,13 +702,15 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
         fwd_plan=fmt_plan(plan),
         fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_cudnn_ms=lib_fwd_ms,
         fwd_bound_ms=f"{f_bound:.4f}", fwd_bound_by=f_by,
-        bwd_ms=f"{bwd_ms:.4f}", bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_cudnn_ms=lib_bwd_ms,
+        bwd_ms=f"{bwd_ms:.4f}", bwd_per_block_recorded_ms=PER_BLOCK_RECORDED_MS["bilstm_train_bwd"][name],
+        bwd_plan=fmt_plan(bwd_plan), bwd_ptxas=repr(ptxas_summary("bilstm_train_bwd.cu")),
+        bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_cudnn_ms=lib_bwd_ms,
         bwd_bound_ms=f"{b_bound:.4f}", bwd_bound_by=b_by)
     return (
         dict(shape=name, err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
              bound_ms=f_bound, flops=f_flops, bytes=f_bytes, plan=plan),
         dict(shape=name, err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
-             bound_ms=b_bound, flops=b_flops, bytes=b_bytes),
+             bound_ms=b_bound, flops=b_flops, bytes=b_bytes, plan=bwd_plan),
     )
 
 
@@ -1010,7 +1029,7 @@ def kernel_entry(name, source, replaces, launches, cases, per, library, bf16_cas
     shapes = {c["shape"]: {k: c[k] for k in keys} for c in cases}
     shapes.update({c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms") if c.get(k) is not None}
                    for c in bf16_cases})
-    # kernels 1 and 3: each shape's launch plan
+    # kernels 1, 3 and 4: each shape's launch plan
     for c in (*cases, *bf16_cases):
         if "plan" in c:
             shapes[c["shape"]]["plan"] = c["plan"]

@@ -1,87 +1,109 @@
-"""A/B timing of build variants of kernel 4 (``csrc/bilstm_train_bwd.cu``).
+"""A/B timing of kernel 4 (``csrc/bilstm_train_bwd.cu``), the BiLSTM backward.
 
     python -m dualvgr_tpu_torch.bench.bwd_kernel_ab
+    python -m dualvgr_tpu_torch.bench.bwd_kernel_ab --baseline DIR
 
-Needs one CUDA device and ``nvcc``. Each variant is the committed source
-with its two launch lines given other template arguments (``launch<kTy,
-kRowsPerThread, kSplit, kRows2, kUnits2, kUnroll2>``: the 16-row tile of
-the appearance encoder, the 4-row tile of the question encoders), or with
-a product's loop cut to zero steps for timing only. ``kSplit = 1`` is the
-dh product in the gate product's thread layout, the kernel's first
-version. Every variant is compiled as ``ops/_build.py`` compiles the
-source, run through the port's wrapper at the three shapes of the flagship
-train step (the appearance encoder, ``concatRNN``, the question
-``encoder``) on the model's projections with seeded cotangents, checked
-against the plain version where its results are meant to be right, and
-timed with CUDA events, the variants interleaved (forward order, then
-reversed) in one process on one card. fp32, TF32 off.
+Needs one CUDA device and ``nvcc``. Without ``--baseline`` it builds the
+committed source, two build variants (the gate product's loop unrolled
+by 2, the dh product's not unrolled; the source unrolls them by 1 and 2)
+and timing-only cuts of it, all ``nvcc``s at once, as ``ops/_build.py``
+builds the source: the gate recompute cut (its product loop runs no
+step), the dh product cut, the reduce-scatter cut (each
+CTA stores its partials into its own receive buffer, so the product stays
+live, and nothing is waited for) and the cell's transcendentals cut (the
+gates pass unsquashed: expf, tanhf and the divisions gone, the rest of the
+cell kept). It runs each through the port's wrapper at the three shapes of
+the flagship train step (the appearance encoder: T 16, R 4096, unmasked,
+final only; ``concatRNN``: T 24, R 256, lengths 4..24, with ``douts``; the
+question ``encoder``: the same, final only) and the appearance shape on
+the same gates rounded to bf16, H 384, seeded random gates and weights, the
+residuals from the plain forward. The committed build and the variants
+are checked against the plain version (1e-3 x max(1, max|ref|)); every
+build is timed with CUDA events, interleaved (forward order, then
+reversed) in one process on one card, and each cut is printed beside what
+it leaves of the committed time.
+
+With ``--baseline DIR`` (a checkout of an earlier commit of the repo) it
+runs this script's measurement in DIR's package and in this one, in turns
+(baseline, this, this, baseline), one process each on the same card: kernel
+4, and kernels 1 and 3 beside it, at the same shapes and gates (fp32, and
+bf16 gates at the appearance shape), and the flagship eval forward at batch
+256 in fp32 and bf16. It prints each time per run and this tree's mean
+against the baseline's. fp32, TF32 off.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
+import os
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
 import torch
 
-from dualvgr_tpu_torch.models.dualvgr import build_model
 from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
-from dualvgr_tpu_torch.ops.lstm_train_kernel import (
-    bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd_reference,
-)
 
 SOURCE = "bilstm_train_bwd.cu"
-LAUNCH_16, LAUNCH_4 = "launch<2, 8, 4, 8, 12, 1>", "launch<4, 1, 4, 4, 3, 4>"
-GATE_LOOP = "for (int k = 0; k < H; k += 4) {"
-DH_LOOP = "for (int k = 0; k < k_len; k += 4) {"
-FLAT_16, FLAT_4 = "launch<2, 8, 1, 8, 3, {u}>", "launch<4, 1, 1, 1, 3, {u}>"
-# name -> (16-row launch, 4-row launch, loops cut to zero steps)
+ROOT = Path(__file__).resolve().parents[2]
+GATE_LOOP = "for (int k = k0; k < k1; k += 4) {"
+DH_LOOP = "for (int c = 0; c < 4 * units; c += 4) {"
+DST = "dst[j] = in_rank(smem_u32(my_slot + k % units), k / units);"
+WAITS = ("mbar_wait(smem_u32(&bars[1]), fullpar);", "mbar_wait(smem_u32(&bars[2]), freepar);",
+         "arrive_remote(in_rank(smem_u32(&bars[1]), i));", "arrive_remote(in_rank(smem_u32(&bars[2]), i));")
+CELL = ("const float ig = sigmoid_f(gate[s][0]), fg = sigmoid_f(gate[s][1]);\n"
+        "        const float gg = tanhf(gate[s][2]), og = sigmoid_f(gate[s][3]);\n"
+        "        const float tc = tanhf(fg * c_prev[s] + ig * gg);")
+GATE_UNROLL = "#pragma unroll 1\n        for (int k = k0;"
+DH_UNROLL = "#pragma unroll 2\n      for (int c = 0;"
+# name -> the replacements that make it; the cuts ("no_*") are timing only
 VARIANTS = {
-    "committed": (LAUNCH_16, LAUNCH_4, ()),
-    "flat": (FLAT_16.format(u=1), FLAT_4.format(u=1), ()),
-    "flat_4x6": ("launch<2, 8, 1, 4, 6, 1>", FLAT_4.format(u=1), ()),
-    "flat_unroll2": (FLAT_16.format(u=2), FLAT_4.format(u=2), ()),
-    "flat_unroll4": (FLAT_16.format(u=4), FLAT_4.format(u=4), ()),
-    "flat_unroll8": (FLAT_16.format(u=8), FLAT_4.format(u=8), ()),
-    "flat_no_gate_product": (FLAT_16.format(u=1), FLAT_4.format(u=1), (GATE_LOOP,)),
-    "flat_no_dh_product": (FLAT_16.format(u=1), FLAT_4.format(u=1), (DH_LOOP,)),
-    "flat_no_products": (FLAT_16.format(u=1), FLAT_4.format(u=1), (GATE_LOOP, DH_LOOP)),
+    "committed": (),
+    "gate_unroll2": ((GATE_UNROLL, GATE_UNROLL.replace("unroll 1", "unroll 2")),),
+    "dh_unroll1": ((DH_UNROLL, DH_UNROLL.replace("unroll 2", "unroll 1")),),
+    "no_gate_recompute": ((GATE_LOOP, GATE_LOOP.replace("k < k1", "k < k0")),),
+    "no_dh_product": ((DH_LOOP, DH_LOOP.replace("c < 4 * units", "c < 0 * units")),),
+    # every partial stored into this CTA's own receive buffer (so the dh
+    # product stays live), no arrival, no wait: the reduce sums stale values
+    "no_reduce_scatter": ((DST, DST.replace("k / units)", "rank)")), *((line, ";") for line in WAITS)),
+    "no_transcendentals": ((CELL, "const float ig = gate[s][0], fg = gate[s][1];\n"
+                                  "        const float gg = gate[s][2], og = gate[s][3];\n"
+                                  "        const float tc = fg * c_prev[s] + ig * gg;"),),
 }
+H, G = 384, 4 * 384
 FLAGSHIP = dict(vision_dim=2048, module_dim=768, word_dim=300, question_vocab_size=8000,
                 num_answers=4000, num_of_nodes=16, graph_layers=1, unit_layers=1)
 BATCH, CLIPS, FRAMES, QLEN = 256, 16, 16, 24
 
 
-def variant_source(text: str, launch16: str, launch4: str, cut) -> str:
-    for old, new in ((LAUNCH_16, launch16), (LAUNCH_4, launch4)):
+def variant_source(text: str, cuts) -> str:
+    for old, new in cuts:
         if old not in text:
             raise RuntimeError(f"{SOURCE} has no `{old}`: update the variants")
         text = text.replace(old, new)
-    for loop in cut:
-        if loop not in text:
-            raise RuntimeError(f"{SOURCE} has no `{loop}`: update the variants")
-        text = text.replace(loop, loop.replace("k < ", "k < 0 * "))
     return text
 
 
 def build_variants(workdir: Path) -> dict[str, ctypes.CDLL]:
-    """Compile every variant, all ``nvcc``s at once."""
+    """Compile every variant, all ``nvcc``s at once, against the committed
+    headers of ``csrc/``."""
     text = (_build.CSRC / SOURCE).read_text()
     procs = {}
-    for name, (l16, l4, cut) in VARIANTS.items():
+    for name, cuts in VARIANTS.items():
         src = workdir / f"{name}.cu"
-        src.write_text(variant_source(text, l16, l4, cut))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(workdir / f"{name}.so"), str(src)]
+        src.write_text(variant_source(text, cuts))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(workdir / f"{name}.so"),
+               str(src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} exited {proc.returncode}:\n{out}")
-        regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line]
+        regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line or "spill" in line]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
         libs[name] = ctypes.CDLL(str(workdir / f"{name}.so"))
     return libs
@@ -101,56 +123,139 @@ def time_ms(fn, iters=10):
 
 @torch.no_grad()
 def cases(gen):
-    """(name, backward args) at the three shapes of the flagship train step."""
-    model = build_model(seed=0, **FLAGSHIP)
+    """(name, forward args, with_outputs, backward args) at the three
+    shapes of the flagship train step, then the appearance shape with bf16
+    gates. Uses only what the trees with the cluster forward kernels all
+    have, so that ``--baseline`` can run it in an earlier one."""
+    from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_fwd_reference
+
     dev = gen.device
-    app = torch.randn((BATCH, CLIPS, FRAMES, FLAGSHIP["vision_dim"]), generator=gen, device=dev)
-    qlen = torch.randint(4, QLEN + 1, (BATCH,), generator=gen, device=dev, dtype=torch.int32)
-    q = torch.randint(1, FLAGSHIP["question_vocab_size"], (BATCH, QLEN), generator=gen, device=dev)
-    q = q * (torch.arange(QLEN, device=dev)[None, :] < qlen[:, None])
-    words = torch.tanh(model.linguistic_input_unit.encoder_embed(q))
-    clips = torch.tanh(app).reshape(BATCH * CLIPS, FRAMES, -1)
-    qe = model.linguistic_input_unit
-    for name, enc, x, lens, outs in (
-        ("appearance", model.visual_appearance_input_unit.encoder, clips, None, False),
-        ("question_outputs", qe.concatRNN.rnn, words, qlen, True),
-        ("question_final", qe.encoder, words, qlen, False),
-    ):
-        fwd, bwd = enc._params(""), enc._params("_reverse")
-        xf, xb = time_major_input_proj(x, fwd), time_major_input_proj(x, bwd, reverse=True)
-        whf, whb = fwd.w_hh.t().contiguous(), bwd.w_hh.t().contiguous()
-        _, _, hprev, cprev = bilstm_train_fwd_reference(xf, xb, whf, whb, lens, with_outputs=outs)
-        t, r, g = xf.shape
-        dfinal = torch.randn((r, g // 2), generator=gen, device=dev)
-        douts = torch.randn((r, t, g // 2), generator=gen, device=dev) if outs else None
-        yield name, (xf, xb, whf, whb, lens, hprev, cprev, dfinal, douts)
+    w = [torch.randn((H, G), generator=gen, device=dev) * 0.05 for _ in range(2)]
+    lens = torch.randint(4, QLEN + 1, (256,), generator=gen, device=dev, dtype=torch.int32)
+    for name, t, r, lengths, outs in (("appearance", 16, 4096, None, False),
+                                      ("question_outputs", QLEN, 256, lens, True),
+                                      ("question_final", QLEN, 256, lens, False)):
+        xf, xb = (torch.randn((t, r, G), generator=gen, device=dev) for _ in range(2))
+        gate_sets = [(name, xf, xb)]
+        if name == "appearance":
+            gate_sets.append(("appearance_bf16", xf.to(torch.bfloat16), xb.to(torch.bfloat16)))
+        for case, gf, gb in gate_sets:
+            fargs = (gf, gb, *w, lengths)
+            _, _, hprev, cprev = bilstm_train_fwd_reference(*fargs, with_outputs=outs)
+            dfinal = torch.randn((r, 2 * H), generator=gen, device=dev)
+            douts = torch.randn((r, t, 2 * H), generator=gen, device=dev) if outs else None
+            yield case, fargs, outs, (*fargs, hprev, cprev, dfinal, douts)
+            del hprev, cprev
+
+
+@torch.no_grad()
+def measure():
+    """This process's package: kernels 1, 3 and 4 per shape and the eval
+    forwards, printed as one ``RESULT`` JSON line."""
+    from dualvgr_tpu_torch import build_model
+    from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence
+    from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    times = {}
+    for name, fargs, outs, bargs in cases(torch.Generator(device="cuda").manual_seed(0)):
+        times[f"kernel 1 {name}"] = time_ms(lambda: bilstm_recurrence(*fargs, with_outputs=outs))
+        times[f"kernel 3 {name}"] = time_ms(lambda: bilstm_train_fwd(*fargs, with_outputs=outs))
+        times[f"kernel 4 {name}"] = time_ms(lambda: bilstm_train_bwd(*bargs))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = build_model(seed=0, **FLAGSHIP)
+    app = torch.randn((BATCH, CLIPS, FRAMES, FLAGSHIP["vision_dim"]), generator=gen, device="cuda")
+    mot = torch.randn((BATCH, CLIPS, FLAGSHIP["vision_dim"]), generator=gen, device="cuda")
+    qlen = torch.randint(4, QLEN + 1, (BATCH,), generator=gen, device="cuda", dtype=torch.int32)
+    q = torch.randint(1, FLAGSHIP["question_vocab_size"], (BATCH, QLEN), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    q = q * (torch.arange(QLEN, device="cuda")[None, :] < qlen[:, None]).int()
+    for dtype in ("float32", "bfloat16"):
+        model.compute_dtype = dtype
+        times[f"eval {dtype}"] = time_ms(lambda: model(app, mot, q, qlen), 5)
+    print("RESULT " + json.dumps(times), flush=True)
+
+
+def run_in(tree: Path) -> dict:
+    """``measure`` with ``tree``'s package, in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure"], cwd=tree, env=env,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"measure in {tree} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT "))
+    return json.loads(line[len("RESULT "):])
+
+
+def against_baseline(baseline: Path):
+    runs = {"baseline": [], "this": []}
+    for who in ("baseline", "this", "this", "baseline"):
+        runs[who].append(run_in(baseline if who == "baseline" else ROOT))
+    for key in runs["this"][0]:
+        base = [r[key] for r in runs["baseline"]]
+        this = [r[key] for r in runs["this"]]
+        change = sum(this) / sum(base) - 1.0
+        print(f"[{key}] baseline " + " / ".join(f"{m:.4f}" for m in base) + " ms; this "
+              + " / ".join(f"{m:.4f}" for m in this) + f" ms; change {100 * change:+.2f}%", flush=True)
+
+
+@torch.no_grad()
+def cuts():
+    from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_bwd_reference
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            libs = build_variants(Path(tmp))
+            order = list(VARIANTS) + list(VARIANTS)[::-1]
+            for shape, _, _, args in cases(torch.Generator(device="cuda").manual_seed(0)):
+                want = bilstm_train_bwd_reference(*args)
+                times = {}
+                for name in order:
+                    # the wrapper loads its library through _build; hand it the variant's
+                    _build._libs[SOURCE] = libs[name]
+                    got = bilstm_train_bwd(*args)
+                    torch.cuda.synchronize()
+                    if not name.startswith("no_"):
+                        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+                        tol = 1e-3 * max(1.0, max(b.abs().max().item() for b in want))
+                        if err > tol:
+                            raise RuntimeError(f"{name} at {shape}: max abs err {err:.3e} > {tol:.3e}")
+                    del got
+                    times.setdefault(name, []).append(time_ms(lambda: bilstm_train_bwd(*args)))
+                base = sum(times["committed"]) / 2
+                for name, ms in times.items():
+                    note = ""
+                    if name.startswith("no_"):
+                        left = sum(ms) / 2
+                        note = (f" (timing only: leaves {left:.4f} ms of the committed {base:.4f}; the cut "
+                                f"part {base - left:.4f} ms, {100 * (base - left) / base:.1f}%)")
+                    print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
+                del want
+    finally:
+        _build._libs.pop(SOURCE, None)
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, help="a checkout of an earlier commit to time against")
+    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bwd_kernel_ab: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(torch.cuda.get_device_name(0), flush=True)
-    _build.BUILD_DIR.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build_variants(Path(tmp))
-        order = list(VARIANTS) + list(VARIANTS)[::-1]
-        for shape, args in cases(torch.Generator(device="cuda").manual_seed(0)):
-            want = bilstm_train_bwd_reference(*args)
-            times = {}
-            for name in order:
-                # the wrapper loads its library through _build; hand it the variant's
-                _build._libs[SOURCE] = libs[name]
-                got = bilstm_train_bwd(*args)
-                torch.cuda.synchronize()
-                err = max((a - b).abs().max().item() for a, b in zip(got, want))
-                if not VARIANTS[name][2] and err > 1e-3 * max(1.0, max(b.abs().max().item() for b in want)):
-                    raise RuntimeError(f"{name} at {shape}: max abs err {err:.3e} against the plain version")
-                times.setdefault(name, []).append(time_ms(lambda: bilstm_train_bwd(*args)))
-            for name, ms in times.items():
-                note = " (timing only: a product cut)" if VARIANTS[name][2] else ""
-                print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
-        _build._libs.pop(SOURCE, None)
+    if args.measure:
+        measure()
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    if args.baseline:
+        against_baseline(args.baseline.resolve())
+    else:
+        cuts()
 
 
 if __name__ == "__main__":

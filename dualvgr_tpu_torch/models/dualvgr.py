@@ -47,7 +47,8 @@ from dualvgr_tpu_torch.models.encoders import AppearanceEncoder, MotionEncoder, 
 from dualvgr_tpu_torch.models.fusion import MFB
 from dualvgr_tpu_torch.models.graph import AttentionSFGCN, PunishGAT, dense_self_loop_adjacency
 from dualvgr_tpu_torch.models.init import init_dualvgr_
-from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle
+from dualvgr_tpu_torch.ops.gat_kernel import MAX_DIM, MAX_NODES, gat_cycle
+from dualvgr_tpu_torch.ops.lstm_kernel import MAX_HIDDEN
 from dualvgr_tpu_torch.ops.precision import stream_dtype_of
 from dualvgr_tpu_torch.utils.device import resolve_device
 
@@ -235,6 +236,34 @@ class DualVGR(nn.Module):
         return DualVGROutput(logits, aq_embed, mq_embed, com_app, com_motion, aq_f, mq_f)
 
 
+def kernel_dim_limits(*, vision_dim: int = 2048, module_dim: int = 768, num_of_nodes: int = 8,
+                      graph_layers: int = 1, compute_dtype: str = "float32", **_) -> list[str]:
+    """One message for each limit of the port's CUDA kernels that a model
+    with these dims (DualVGR's defaults for those not given; the others are
+    ignored) breaks on the kernel path; empty if it breaks none.
+
+    The BiLSTM kernels (1, 3, 4) take hidden size module_dim // 2; the graph
+    cycle (kernel 2) runs only with graph_layers == 1; the projection
+    (kernel 6) and its tanh pass only under compute_dtype "bfloat16", on the
+    appearance features (D = vision_dim) into 4H gate columns.
+    """
+    out = []
+    hidden = module_dim // 2
+    if hidden % 4 or hidden > MAX_HIDDEN:
+        out.append(f"the BiLSTM kernels take hidden size module_dim // 2 = {hidden} only if it is a multiple "
+                   f"of 4 and at most {MAX_HIDDEN}")
+    if graph_layers == 1:
+        if num_of_nodes > MAX_NODES:
+            out.append(f"the graph-cycle kernel takes num_of_nodes <= {MAX_NODES}, got {num_of_nodes}")
+        if module_dim > MAX_DIM or module_dim % 4:
+            out.append(f"the graph-cycle kernel takes module_dim <= {MAX_DIM} and a multiple of 4, got "
+                       f"{module_dim}")
+    if stream_dtype_of(compute_dtype) is not None and (vision_dim % 8 or 4 * hidden % 8):
+        out.append(f"the bf16 projection kernel takes vision_dim and 4 * (module_dim // 2) as multiples of 8, "
+                   f"got {vision_dim} and {4 * hidden}")
+    return out
+
+
 def build_model(*, device: str | torch.device = "cuda", seed: int = 0,
                 use_kernels: bool = True, compute_dtype: str = "float32", **dims) -> DualVGR:
     """A DualVGR in eval mode on ``device``, drawn from ``seed`` on the CPU
@@ -242,8 +271,17 @@ def build_model(*, device: str | torch.device = "cuda", seed: int = 0,
     ``compute_dtype``). ``dims`` are DualVGR's size arguments (vision_dim,
     module_dim, word_dim, question_vocab_size, num_answers, num_of_nodes,
     graph_layers, unit_layers). Raises on a machine without CUDA unless
-    ``device='cpu'``."""
+    ``device='cpu'``, and raises ``ValueError`` for a model with kernels on
+    a CUDA device whose dims a kernel cannot take (``kernel_dim_limits``),
+    before any forward. On the CPU the wrappers run their plain versions,
+    which take any dims."""
     dev = resolve_device(device)
+    if use_kernels and dev.type == "cuda":
+        broken = kernel_dim_limits(compute_dtype=compute_dtype, **dims)
+        if broken:
+            raise ValueError("these dims break limits of the port's CUDA kernels: " + "; ".join(broken)
+                             + ". Build with use_kernels=False (tpu.use_pallas: false) to run them on the "
+                             "plain path")
     model = DualVGR(use_kernels=use_kernels, compute_dtype=compute_dtype,
                     generator=torch.Generator().manual_seed(seed), **dims)
     return model.to(dev)

@@ -50,7 +50,7 @@ SMEM_LIMIT = 232_448
 
 @dataclass(frozen=True)
 class RecurrencePlan:
-    """How one launch of kernel 1 or 3 spreads over the card: ``clusters``
+    """How one launch of kernel 1, 3 or 4 spreads over the card: ``clusters``
     clusters of ``cluster`` CTAs; each CTA owns ``units`` hidden units (the
     last ones fewer, or none); each cluster walks at most
     ``tiles_per_cluster`` of the ``2 * tiles`` (direction, row tile) items;
@@ -75,6 +75,18 @@ def smem_bytes(hidden, padded):
                      + 2 * rows * GATE_COLS // 4)
 
 
+def bwd_smem_bytes(hidden, padded):
+    """One CTA's shared memory in kernel 4 (csrc/bilstm_train_bwd.cu, on the
+    forward's build constants): the mbarriers (64 bytes), then in fp32 the
+    W slice (GATE_COLS columns of H + 4), the h tile (rows of H + 4), the
+    gate product's partial sums (RED_BUFFERS x rows of RED_STRIDE; the
+    dgates reuse them) and the dh partials' receive buffer (rows of the
+    ``padded`` = cluster x units hidden size)."""
+    rows = ROWS_PER_TILE
+    return 4 * (16 + GATE_COLS * (hidden + 4) + rows * (hidden + 4) + RED_BUFFERS * rows * RED_STRIDE
+                + rows * padded)
+
+
 def cluster_shape(hidden):
     """``(cluster, units)``: the smallest cluster whose CTAs' slices hold
     all ``hidden`` units, each CTA at most GATE_COLS / 4 of them, a
@@ -93,16 +105,26 @@ def recurrence_plan(rows, hidden, active_clusters):
     on a card that keeps ``active_clusters`` clusters resident at once: as
     many clusters as that, or as there are items, walk the 2 x ceil(R /
     ROWS_PER_TILE) items between them (``cluster_items``)."""
+    return _plan(rows, hidden, active_clusters, smem_bytes)
+
+
+def backward_plan(rows, hidden, active_clusters):
+    """The launch plan of kernel 4: kernel 3's, with ``bwd_smem_bytes``."""
+    return _plan(rows, hidden, active_clusters, bwd_smem_bytes)
+
+
+def _plan(rows, hidden, active_clusters, smem):
+    rows_per_tile = ROWS_PER_TILE
     if rows <= 0:
         raise ValueError(f"rows must be positive, got {rows}")
     if active_clusters < 1:
         raise RuntimeError(f"the card keeps no cluster of the recurrence resident (H = {hidden})")
     cluster, units = cluster_shape(hidden)
-    tiles = -(-rows // ROWS_PER_TILE)
+    tiles = -(-rows // rows_per_tile)
     clusters = min(active_clusters, 2 * tiles)
-    return RecurrencePlan(cluster=cluster, units=units, rows_per_tile=ROWS_PER_TILE, tiles=tiles,
+    return RecurrencePlan(cluster=cluster, units=units, rows_per_tile=rows_per_tile, tiles=tiles,
                           clusters=clusters, tiles_per_cluster=-(-2 * tiles // clusters),
-                          smem_bytes=smem_bytes(hidden, cluster * units))
+                          smem_bytes=smem(hidden, cluster * units))
 
 
 def cta_units(plan, hidden, rank):
@@ -148,9 +170,11 @@ def library_smem_bytes(lib, prefix, hidden):
     return fn(hidden, cluster, units)
 
 
-def launch_plan(lib, prefix, rows, hidden, code):
-    """The plan for one launch of ``<prefix>_launch`` in ``lib``."""
-    return recurrence_plan(rows, hidden, active_clusters(lib, prefix, hidden, code))
+def launch_plan(lib, prefix, rows, hidden, code, plan=recurrence_plan):
+    """The plan for one launch of ``<prefix>_launch`` in ``lib``
+    (``plan``: ``recurrence_plan`` for kernels 1 and 3, ``backward_plan``
+    for kernel 4)."""
+    return plan(rows, hidden, active_clusters(lib, prefix, hidden, code))
 
 
 def plan_args(plan):

@@ -23,7 +23,10 @@ bfloat16``, ``lstm_pallas_train.py:392-405``); the weights, the
 residuals, ``final``, ``outs`` and the dgates are fp32 either way, as in
 the TPU kernels. On a CPU tensor each wrapper runs its ``*_reference``,
 the plain PyTorch loop; on a CUDA tensor it launches
-``csrc/bilstm_train_fwd.cu`` or ``csrc/bilstm_train_bwd.cu`` or raises.
+``csrc/bilstm_train_fwd.cu`` or ``csrc/bilstm_train_bwd.cu`` or raises. Both
+are thread-block cluster kernels with each CTA's slice of W_hh resident in
+shared memory; their launch plans (``recurrence_plan``, ``backward_plan``
+in ``ops/lstm_kernel.py``) are computed here and checked by the C entries.
 Both record nothing for autograd (``refuse_autograd``); the Functions of
 ``ops/lstm_train.py`` call them. What bounds each kernel and what its design does about it is
 written at the top of its source.
@@ -31,13 +34,11 @@ written at the top of its source.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.lstm_kernel import (
-    MAX_HIDDEN, _check, gate_dtype_code, launch_fn, launch_plan, plan_args, recurrence_loop, refuse_autograd,
+    MAX_HIDDEN, _check, backward_plan, gate_dtype_code, launch_fn, launch_plan, plan_args, recurrence_loop,
+    refuse_autograd,
 )
 
 
@@ -91,13 +92,6 @@ def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev
             dc = (1.0 - m) * dc + dcell * f
         dxs.append(dx)
     return dxs[0], dxs[1]
-
-
-def _launch_fn(source, name, n_ptrs):
-    fn = getattr(_build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_common(name, xf, xb_rev, w_hh_f, w_hh_b, lengths):
@@ -167,17 +161,19 @@ def bilstm_train_bwd(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, 
     _check("dfinal", dfinal, (r, 2 * hidden), dev)
     if douts is not None:
         _check("douts", douts, (r, t_total, 2 * hidden), dev)
-    # the dh_prev = dgates @ W_hh^T product reads W_hh^T (4H, H), whose
-    # columns are the hidden units: coalesced across the unit lanes
-    w_t_f, w_t_b = w_hh_f.t().contiguous(), w_hh_b.t().contiguous()
+    # the kernel copies hprev's rows into shared memory with bulk async
+    # copies, which need 16-byte aligned addresses
+    if hprev.data_ptr() % 16:
+        raise ValueError("hprev must start on a 16-byte aligned address")
     dxf, dxb = (torch.empty(xf.shape, device=dev, dtype=torch.float32) for _ in range(2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd_launch", 13)(
-            xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-            w_t_f.data_ptr(), w_t_b.data_ptr(), _ptr(lengths), hprev.data_ptr(), cprev.data_ptr(),
-            dfinal.data_ptr(), _ptr(douts), dxf.data_ptr(), dxb.data_ptr(),
-            t_total, r, hidden, code, stream,
+        lib, fn = launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 11)
+        plan = launch_plan(lib, "bilstm_train_bwd", r, hidden, code, plan=backward_plan)
+        err = fn(
+            xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths),
+            hprev.data_ptr(), cprev.data_ptr(), dfinal.data_ptr(), _ptr(douts), dxf.data_ptr(), dxb.data_ptr(),
+            t_total, r, hidden, code, *plan_args(plan), stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_train_bwd launch failed: cudaError {err}")

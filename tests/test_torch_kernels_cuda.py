@@ -97,6 +97,13 @@ def test_cluster_kernels_are_deterministic(rs, cuda):
         for a, b in zip(*runs):
             if a is not None:
                 assert torch.equal(a, b)
+    _, _, hprev, cprev = lstm_train_kernel.bilstm_train_fwd_reference(xf, xb, wf, wb, lens, with_outputs=True)
+    dfinal, douts = _t(rs, cuda, r, 2 * h), _t(rs, cuda, r, t, 2 * h)
+    runs = [lstm_train_kernel.bilstm_train_bwd(xf, xb, wf, wb, lens, hprev, cprev, dfinal, douts)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
@@ -116,16 +123,30 @@ def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
         assert fn(*ptrs, t, r, h, 0, *bad, stream) == 1, bad
     assert fn(*ptrs, t, r, h, 0, *good, stream) == 0
     torch.cuda.synchronize()
+    # kernel 4's entry checks its own plan the same way
+    res = _t(rs, cuda, t, r, 2 * h)
+    dx = torch.empty(t, r, 4 * h, device=cuda)
+    lib, fn = lstm_kernel.launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 11)
+    plan = lstm_kernel.launch_plan(lib, "bilstm_train_bwd", r, h, 0, plan=lstm_kernel.backward_plan)
+    good = lstm_kernel.plan_args(plan)
+    ptrs = (xf.data_ptr(), xf.data_ptr(), w.data_ptr(), w.data_ptr(), None, res.data_ptr(), res.data_ptr(),
+            final.data_ptr(), None, dx.data_ptr(), dx.data_ptr())
+    for bad in ((8,) + good[1:], (16, 20) + good[2:], good[:2] + (8, good[3]), good[:3] + (0,),
+                good[:3] + (2 * plan.tiles + 1,)):
+        assert fn(*ptrs, t, r, h, 0, *bad, stream) == 1, bad
+    assert fn(*ptrs, t, r, h, 0, *good, stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_cluster_plan_shared_memory_is_the_builds(cuda):
     """The plan's shared memory per CTA (``lstm_kernel.smem_bytes``) is what
     each cluster library launches with, at every H it takes."""
-    for source, prefix in (("bilstm_recurrence.cu", "bilstm_recurrence"),
-                           ("bilstm_train_fwd.cu", "bilstm_train_fwd")):
+    for source, prefix, plan in (("bilstm_recurrence.cu", "bilstm_recurrence", lstm_kernel.recurrence_plan),
+                                 ("bilstm_train_fwd.cu", "bilstm_train_fwd", lstm_kernel.recurrence_plan),
+                                 ("bilstm_train_bwd.cu", "bilstm_train_bwd", lstm_kernel.backward_plan)):
         lib = lstm_kernel._build.load(source)
         for h in range(4, lstm_kernel.MAX_HIDDEN + 1, 4):
-            want = lstm_kernel.recurrence_plan(16, h, 1).smem_bytes
+            want = plan(16, h, 1).smem_bytes
             assert lstm_kernel.library_smem_bytes(lib, prefix, h) == want, (prefix, h)
 
 
@@ -186,6 +207,8 @@ def _close(a, b, tol, name):
     (19, 12, 100, True, False),   # hidden not a multiple of the unit lanes
     (256, 24, 384, True, True),   # the question encoders' shape
     (1100, 6, 384, True, True),   # more items than clusters, ragged
+    (1100, 5, 100, True, False),  # the ragged item walk with a CTA that owns no unit
+    (1, 8, 384, True, True),      # one row
     (4096, 16, 384, False, False),  # the appearance encoder
 ])
 def test_train_kernels_match_plain(rs, cuda, r, t, h, masked, with_outputs):
@@ -415,7 +438,7 @@ def test_recurrence_kernel_with_bf16_gates_matches_plain(rs, cuda, r, t, h, mask
         _close_bf16(a, b, 1e-4, name)
 
 
-@pytest.mark.parametrize("r,t,h", [(37, 5, 16), (4096, 16, 384)])
+@pytest.mark.parametrize("r,t,h", [(37, 5, 16), (1100, 6, 384), (1, 7, 100), (4096, 16, 384)])
 def test_train_kernels_with_bf16_gates_match_plain(rs, cuda, r, t, h):
     """The appearance op's shape: full length, final only, bf16 gates; the
     outputs and the dgates stay fp32."""
@@ -463,3 +486,20 @@ def test_bf16_model_kernel_path_launches_and_stays_near_fp32(rs, cuda, unit_laye
     want = model(app, mot, q, qlen)
     scale = want.logits.abs().max().item()
     assert (got.logits - want.logits).abs().max().item() <= 5e-2 * scale
+
+
+def test_build_model_refuses_dims_the_kernels_cannot_take(rs, cuda):
+    """On the card a model whose dims a kernel cannot take is refused when
+    it is built, naming the limit and the plain path; with kernels off the
+    same dims run a forward."""
+    dims = dict(vision_dim=64, module_dim=1024, word_dim=16, question_vocab_size=40, num_answers=30,
+                num_of_nodes=6, graph_layers=1, unit_layers=1)
+    with pytest.raises(ValueError, match="use_pallas: false") as err:
+        build_model(device=cuda, **dims)
+    assert "BiLSTM" in str(err.value) and "graph-cycle" in str(err.value)
+    model = build_model(device=cuda, use_kernels=False, **dims)
+    b, t = 3, 5
+    qlen = torch.from_numpy(rs.randint(1, t + 1, (b,)).astype(np.int32)).to(cuda)
+    q = torch.from_numpy(rs.randint(1, 40, (b, t)).astype(np.int32)).to(cuda)
+    out = model(_t(rs, cuda, b, 6, 4, 64), _t(rs, cuda, b, 6, 64), q, qlen)
+    assert out.logits.shape == (b, 30) and torch.isfinite(out.logits).all()
