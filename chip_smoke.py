@@ -13,7 +13,11 @@ streaming path):
    three shapes of the flagship forward, with bidirectional torch.nn.LSTM
    (cuDNN, projection included) timed as the library yardstick;
 4. gat_cycle: the graph-cycle kernel against its plain version on the
-   appearance and the motion stream's inputs, B=256, N=16, D=768;
+   appearance and the motion stream's inputs, B=256, N=16, D=768, and on
+   their first 32 videos (the serving batch), with each shape's launch
+   plan (cluster size, clusters, the most videos a cluster takes, CTAs, the
+   clusters the card keeps resident and the waves they make, the K split,
+   shared memory per CTA checked against the library's own count);
 5. eval: the eval forward at the MSRVTT-QA flagship width, batch 256,
    kernel path against plain path, launch counts per forward, QA/s;
 6. bilstm *_bf16: kernel 1 with bf16 gates at the three shapes of the bf16
@@ -89,6 +93,7 @@ from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
 from dualvgr_tpu_torch.config import cfg_from_file
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.dropout import Dropout
+from dualvgr_tpu_torch.ops import gat_kernel
 from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle, gat_cycle_reference
 from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
 from dualvgr_tpu_torch.ops.lstm_kernel import (
@@ -407,6 +412,13 @@ def gat_case(name, h, scores, args):
     plain_ms = time_ms(lambda: gat_cycle_reference(h, scores, *args), 5)
     b, n, d = h.shape
     heads = args[2].shape[0]
+    plan = gat_kernel.card_plan(b, n, d, heads)
+    smem = gat_kernel.library_smem_bytes(b, n, d, heads, plan)
+    check(smem == plan.smem_bytes, f"gat_cycle {name}: the plan's {plan.smem_bytes} bytes of shared memory, "
+                                   f"the build's {smem}")
+    plan = dict(cluster=plan.cluster, clusters=plan.clusters, videos_per_cluster=plan.videos_per_cluster,
+                ctas=plan.ctas, active_clusters=gat_kernel.active_clusters(b, n, d, heads, plan),
+                waves=round(plan.waves, 3), tile_rows=plan.tile_rows, k_split=plan.k_split, smem_bytes=smem)
     flops = 8 * b * n * d * d + 4 * b * n * n * d + 8 * b * n * d
     score_bytes = 4 * b * n  # the broadcast view holds one float per clip
     nbytes = 4 * (h.numel() + 3 * d * d + 4 * d + 4 * heads * (d // heads) + 2 * heads) \
@@ -414,28 +426,32 @@ def gat_case(name, h, scores, args):
     bms, by = bound_ms(flops, nbytes)
     say(f"gat_cycle {name}", B=b, N=n, D=d, heads=heads, err_out=f"{errs[0]:.3e}",
         err_common=f"{errs[1]:.3e}", err_spec=f"{errs[2]:.3e}", tol=f"{TOL_GAT}*max(1,max|ref|)",
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by)
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by, plan=fmt_plan(plan))
     return dict(shape=name, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms, flops=flops,
-                bytes=nbytes)
+                bytes=nbytes, plan=plan)
 
 
 @torch.no_grad()
 def phase_gat(model, app, mot, q, qlen):
     """The cycle on both streams' real inputs at batch 256, as one flagship
-    forward launches it."""
+    forward launches it, then on their first SERVE_BATCH videos, as a
+    served batch launches it. Returns (batch 256 cases, serving cases)."""
     _, words, dynamic = model.linguistic_input_unit(q, qlen, use_kernel=False)
     h_app = model.visual_appearance_input_unit(app, use_kernel=False)
     h_mot = model.visual_motion_input_unit(mot)
     vu = model.visual_input_unit
     guided, _ = vu.queryAttn[0](words, dynamic, qlen)
     # the scores are broadcast views, one score per clip
-    return [
-        gat_case("appearance", h_app, vu.queryPunish_appear[0](guided, h_app),
-                 (*vu.acGCN[0].merged(), *vu.appearance_GCN[0].merged(),
-                  *vu.attention_appearance[0].merged())),
-        gat_case("motion", h_mot, vu.queryPunish_motion[0](guided, h_mot),
-                 (*vu.mcGCN[0].merged(), *vu.motion_GCN[0].merged(), *vu.attention_motion[0].merged())),
+    streams = [
+        ("appearance", h_app, vu.queryPunish_appear[0](guided, h_app),
+         (*vu.acGCN[0].merged(), *vu.appearance_GCN[0].merged(), *vu.attention_appearance[0].merged())),
+        ("motion", h_mot, vu.queryPunish_motion[0](guided, h_mot),
+         (*vu.mcGCN[0].merged(), *vu.motion_GCN[0].merged(), *vu.attention_motion[0].merged())),
     ]
+    full = [gat_case(name, h, scores, args) for name, h, scores, args in streams]
+    serving = [gat_case(f"{name}_b{SERVE_BATCH}", h[:SERVE_BATCH], scores[:SERVE_BATCH], args)
+               for name, h, scores, args in streams]
+    return full, serving
 
 
 KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one, input_proj_both,
@@ -1018,23 +1034,24 @@ def train_batch(gen):
     return app, mot, q, qlen, answers, valid
 
 
-def kernel_entry(name, source, replaces, launches, cases, per, library, bf16_cases=(), peak=PEAK_FP32_FLOPS,
+def kernel_entry(name, source, replaces, launches, cases, per, library, side_cases=(), peak=PEAK_FP32_FLOPS,
                  **extra):
     """One row of the kernels line: the sums over the cases of one step or
-    forward; ``bf16_cases`` (the bf16-gate variants on the bf16 paths) are
-    listed beside them in ``shapes`` and in the error, not in the sums."""
+    forward; ``side_cases`` (the bf16-gate variants on the bf16 paths,
+    kernel 2 at the serving batch) are listed beside them in ``shapes`` and
+    in the error, not in the sums."""
     total = lambda key: sum(c[key] for c in cases)
     bms, by = bound_ms(total("flops"), total("bytes"), peak)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") if library else ("ms", "plain_ms", "bound_ms")
     shapes = {c["shape"]: {k: c[k] for k in keys} for c in cases}
     shapes.update({c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms") if c.get(k) is not None}
-                   for c in bf16_cases})
-    # kernels 1, 3 and 4: each shape's launch plan
-    for c in (*cases, *bf16_cases):
+                   for c in side_cases})
+    # kernels 1-4: each shape's launch plan
+    for c in (*cases, *side_cases):
         if "plan" in c:
             shapes[c["shape"]]["plan"] = c["plan"]
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                max_abs_err=max(c["err"] for c in (*cases, *bf16_cases)), ms=total("ms"),
+                max_abs_err=max(c["err"] for c in (*cases, *side_cases)), ms=total("ms"),
                 plain_ms=total("plain_ms"), bound_ms=bms, bound_by=by,
                 library_ms=total("library_ms") if library else None, per=per, shapes=shapes, **extra)
 
@@ -1046,7 +1063,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     app, mot, q, qlen = flagship_inputs(BATCH, gen)
     lstm_cases = phase_bilstm(model, app, q, qlen)
-    gat_cases = phase_gat(model, app, mot, q, qlen)
+    gat_cases, gat_serve_cases = phase_gat(model, app, mot, q, qlen)
     _, fp32_logits = phase_eval(model, app, mot, q, qlen)
     lstm_bf16, fwd_bf16, bwd_bf16 = phase_bilstm_bf16(model, app, q, qlen,
                                                      torch.Generator(device="cuda").manual_seed(4))
@@ -1081,36 +1098,37 @@ def main():
         kernel_entry("bilstm_recurrence", "dualvgr_tpu_torch/csrc/bilstm_recurrence.cu",
                      "dualvgr_tpu/ops/lstm_pallas.py:107", serve_launches[0], lstm_cases,
                      f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
-                     "bf16-gate shapes", library=True, bf16_cases=lstm_bf16,
+                     "bf16-gate shapes", library=True, side_cases=lstm_bf16,
                      launches_bf16=serve_bf16_launches[0]),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
                      "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
                      "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
-                     "forward too)", library=False, launches_bf16=serve_bf16_launches[1]),
+                     f"forward too); *_b{SERVE_BATCH}: the same streams' first {SERVE_BATCH} videos (a served "
+                     "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1]),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "
                      "training-mode forward, input projection included; appearance_bf16: the bf16 "
-                     "step's bf16 gates", library=True, bf16_cases=[fwd_bf16],
+                     "step's bf16 gates", library=True, side_cases=[fwd_bf16],
                      launches_bf16=train_bf16_launches[2]),
         kernel_entry("bilstm_train_bwd", "dualvgr_tpu_torch/csrc/bilstm_train_bwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:239", train_launches[3], bwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN backward, "
                      "dX, dW_ih, dW_hh and the biases' gradients included; appearance_bf16: the bf16 "
-                     "step's bf16 gates", library=True, bf16_cases=[bwd_bf16],
+                     "step's bf16 gates", library=True, side_cases=[bwd_bf16],
                      launches_bf16=train_bf16_launches[3]),
         kernel_entry("input_proj_one", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:68", n5, k5_cases[:1],
                      "two launches (forward, time-reversed) at R = 4096, as the probe's v2; R512 at batch "
                      "32; library: the probe's v0 (tanh, two cuBLAS bf16 products with fp32 output, bias, "
-                     "cast, time-major copy, flip)", library=True, bf16_cases=k5_cases[1:],
+                     "cast, time-major copy, flip)", library=True, side_cases=k5_cases[1:],
                      peak=PEAK_BF16_FLOPS),
         kernel_entry("input_proj_both", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:112", serve_bf16_launches[5], k6_cases[:1],
                      "one call on fp32 x (the tanh pass, then the product) at R = 4096 (the bf16 forward at "
                      "batch 256); R512 at batch 32; library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: "
                      "the form on bf16 x (the bf16 train step's); tanh_to_bf16: the tanh pass alone",
-                     library=True, bf16_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
+                     library=True, side_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
                      launches_train_bf16=train_bf16_launches[5], library_v1_ms=k6_cases[0]["library_v1_ms"],
                      bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"],
                      tanh_to_bf16=dict(

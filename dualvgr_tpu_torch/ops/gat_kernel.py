@@ -10,14 +10,24 @@ out = h + SFGCN([common, spec]).
 
 On a CPU tensor the wrapper runs ``gat_cycle_reference``; on a CUDA tensor
 it launches ``csrc/gat_cycle.cu`` or raises. That source says what bounds
-the kernel on the H100 and what its design does about it: one block per
-video keeps the N x D tiles in shared memory and computes the four D x D
-products itself, fp32 on the CUDA cores, so it is bound by operations.
+the kernel on the H100 and what its design does about it: the four D x D
+products, fp32 FMAs on the CUDA cores, bound it by operations; a
+thread-block cluster takes several videos, each CTA owns whole heads (a
+column slice), the weights' k-chunks stream through shared memory and
+serve every row of the tile, and the cluster sums its partial scores
+through distributed shared memory. What bounds it now: the products, 82%
+of a launch at B = 256, N = 16 on the H100, their FMAs at about 43% of the
+fp32 rate (``bench/gat_kernel_ab.py``'s cuts). The launch plan is
+``cycle_plan``, here, so the CPU tests cover it; ``card_plan`` gives it the
+clusters of each size the card keeps resident (30 of 4 CTAs, 66 of 2 on an
+H100: a cluster's CTAs share a GPC).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +35,222 @@ import torch.nn.functional as F
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.lstm_kernel import _check, refuse_autograd
 
-MAX_NODES = 20
-MAX_DIM = 768  # kThreads * kCols in the source
+MAX_NODES = 20  # kMaxNodes in the source
+MAX_DIM = 768  # kMaxDim in the source
 ALPHA = 0.01  # LeakyReLU slope of the GAT logits
+
+# The kernel's build constants (csrc/gat_cycle.cu), which the plan mirrors:
+# threads a CTA, the rows (tile_rows, one build each) and columns a thread
+# holds in a product, the k-chunk depth and the A chunks' row stride, the
+# rings' depth, the most rows a tile has, the most column lanes, the
+# largest cluster (portable) and the shared memory a block may use on the
+# H100. The CPU tests read the source's values against these, and the card
+# tests hold ``smem_bytes`` against the library's own.
+THREADS = 256
+TILE_ROWS = (4, 5, 6, 7, 8)
+TILE_COLS = 12
+K_CHUNK = 32
+A_STRIDE = K_CHUNK + 4
+STAGES = 2
+MAX_ROWS = 128
+MAX_COL_LANES = 16
+MAX_CLUSTER = 8
+SMEM_LIMIT = 232_448
+SMS = 132  # the H100's SMs: at one CTA an SM, SMS // cluster clusters resident unless told
+
+
+@dataclass(frozen=True)
+class CyclePlan:
+    """How one launch of kernel 2 spreads over the card: ``clusters``
+    clusters of ``cluster`` CTAs (``ctas`` in all, ``waves`` = clusters
+    over the clusters the card keeps resident); cluster c takes the videos
+    ``cluster_videos``, at most ``videos_per_cluster`` (``rows_per_tile``
+    = that x N rows, ``padded_rows`` to ``tile_rows``, the rows a thread
+    holds); each CTA owns ``heads_per_cta`` heads, the ``cols_per_cta``
+    columns [rank x cols_per_cta, ...), computed by ``col_lanes`` column
+    lanes of TILE_COLS columns in ``col_passes`` windows, each chunk's k
+    range split over ``k_split`` thread groups; ``smem_bytes`` of dynamic
+    shared memory per CTA."""
+
+    cluster: int
+    heads_per_cta: int
+    cols_per_cta: int
+    clusters: int
+    videos_per_cluster: int
+    rows_per_tile: int
+    tile_rows: int
+    padded_rows: int
+    col_lanes: int
+    col_passes: int
+    k_split: int
+    ctas: int
+    waves: float
+    smem_bytes: int
+
+
+def k_split(rows, tile_rows, col_lanes):
+    """The source's ``ks``: the most thread groups (a power of 2) whose row
+    lanes (``rows`` padded to ``tile_rows``, per lane) fit the CTA, each
+    with 4 k or more of a chunk."""
+    lanes, used, ks = THREADS // col_lanes, -(-rows // tile_rows), 1
+    while 2 * ks * used <= lanes and 8 * ks <= K_CHUNK:
+        ks *= 2
+    return ks
+
+
+def smem_bytes(n, d, heads, cluster, videos, col_lanes, tile_rows):
+    """One CTA's shared memory for tiles of at most ``videos`` videos, the
+    source's ``smem_bytes``: the weight ring (STAGES x K_CHUNK rows of
+    col_lanes x TILE_COLS, or the K split's partial sums if more), the A
+    ring (STAGES x padded rows of A_STRIDE), the GAT's rows (padded rows of
+    cols + 4), the attention (videos x heads a CTA x N x N rounded up to
+    4), the logit halves (2 x heads a CTA x padded rows), the partial
+    scores and beta (3 x padded rows), all fp32."""
+    rows = -(-videos * n // tile_rows) * tile_rows
+    hpc, cw = heads // cluster, d // cluster
+    ring = max(STAGES * K_CHUNK, (k_split(rows, tile_rows, col_lanes) - 1) * rows)
+    return 4 * (ring * col_lanes * TILE_COLS + STAGES * rows * A_STRIDE + rows * (cw + 4) + 2 * hpc * rows
+                + videos * hpc * n * -(-n // 4) * 4 + 3 * rows)
+
+
+def _check_dims(n, d, heads):
+    if n <= 0 or n > MAX_NODES or d <= 0 or d > MAX_DIM or d % 4 or heads <= 0 or d % heads:
+        raise ValueError(
+            f"gat_cycle takes N <= {MAX_NODES}, D <= {MAX_DIM}, D % 4 == 0 and "
+            f"H*hd == D; got N={n}, D={d}, H={heads}"
+        )
+
+
+def _tile_rows(rows, col_lanes):
+    """The rows a thread holds for a tile of ``rows`` rows: the one that
+    keeps the most row lanes busy (with the K split), the most rows on a
+    tie (fewer shared-memory reads an FMA); None if none fits MAX_ROWS."""
+    lanes = THREADS // col_lanes
+    fit = [tm for tm in TILE_ROWS if -(-rows // tm) <= lanes and -(-rows // tm) * tm <= MAX_ROWS]
+    if not fit:
+        return None
+    return max(fit, key=lambda tm: (k_split(rows, tm, col_lanes) * -(-rows // tm), tm))
+
+
+def cluster_sizes(d, heads):
+    """The cluster sizes the kernel takes for these dims: CTAs that each own
+    whole heads, a column slice that is a multiple of 4, at most
+    MAX_CLUSTER CTAs."""
+    return tuple(c for c in range(1, min(heads, MAX_CLUSTER) + 1) if heads % c == 0 and (d // c) % 4 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def cycle_plan(b, n, d, heads, resident=None, cluster=None):
+    """The launch plan of kernel 2 for h (``b``, ``n``, ``d``) and ``heads``
+    heads, on a card that keeps ``resident`` clusters of each size resident
+    at once (pairs (cluster size, count); ``card_plan`` asks the card; by
+    default SMS // size, one CTA an SM), with clusters of ``cluster`` CTAs
+    if given, else of the size that costs least.
+
+    For each cluster size (``cluster_sizes``): column lanes, one per
+    TILE_COLS columns, at most MAX_COL_LANES, fewer if shared memory asks;
+    of the cluster counts whose largest tile fits MAX_ROWS rows and shared
+    memory, the one of least cost: rounds x (column passes x (tile_rows /
+    k_split + 1) + 1), in units of a thread's FMAs for one row: the
+    products, each pass's stream and a tile's fixed cost, as the cuts of
+    ``bench/gat_kernel_ab.py`` measured them on the H100 (rounds: the
+    clusters over those resident). The least cost wins, then the larger
+    cluster (fewer weight reads a row), then more clusters. Cluster c takes videos [c b / clusters, (c + 1) b /
+    clusters). Raises ``ValueError`` for dims the kernel does not take.
+    """
+    if b <= 0:
+        raise ValueError(f"gat_cycle needs a batch, got B={b}")
+    _check_dims(n, d, heads)
+    counts = dict(resident or ())
+    best = None
+    for size in (cluster,) if cluster else cluster_sizes(d, heads):
+        cw = d // size
+        res = max(1, counts.get(size, SMS // size))
+        lanes = min(MAX_COL_LANES, -(-cw // TILE_COLS))
+
+        def tile(k):
+            tb = -(-b // k)
+            tm = _tile_rows(tb * n, lanes)
+            if tm is None or smem_bytes(n, d, heads, size, tb, lanes, tm) > SMEM_LIMIT:
+                return None
+            return tb, tm, k_split(tb * n, tm, lanes)
+
+        while True:
+            tiles = {k: t for k in range(1, b + 1) if (t := tile(k)) is not None}
+            if tiles or lanes == 1:
+                break
+            lanes -= 1  # a narrower weight ring
+        passes = -(-cw // (lanes * TILE_COLS))
+        for k, (tb, tm, ks) in tiles.items():
+            rounds = -(-k // res)
+            key = (rounds * (passes * (tm / ks + 1) + 1), -size, -k)
+            if best is None or key < best[0]:
+                best = key, size, res, lanes, passes, k, tb, tm, ks
+    if best is None:
+        raise ValueError(f"gat_cycle: no tile of N={n}, D={d}, H={heads} fits {SMEM_LIMIT} bytes of shared memory")
+    _, size, res, lanes, passes, clusters, tb, tm, ks = best
+    return CyclePlan(cluster=size, heads_per_cta=heads // size, cols_per_cta=d // size, clusters=clusters,
+                     videos_per_cluster=tb, rows_per_tile=tb * n, tile_rows=tm, padded_rows=-(-tb * n // tm) * tm,
+                     col_lanes=lanes, col_passes=passes, k_split=ks, ctas=clusters * size, waves=clusters / res,
+                     smem_bytes=smem_bytes(n, d, heads, size, tb, lanes, tm))
+
+
+def cluster_videos(plan, b, c):
+    """The videos cluster ``c`` takes, as the kernel computes them."""
+    return range(c * b // plan.clusters, (c + 1) * b // plan.clusters)
+
+
+def cta_columns(plan, rank):
+    """The output columns CTA ``rank`` computes, pass by pass, as the
+    kernel's column lanes cover them."""
+    c0, window = rank * plan.cols_per_cta, plan.col_lanes * TILE_COLS
+    cols = []
+    for p in range(plan.col_passes):
+        lo = p * window
+        cols.extend(c0 + lo + lane * TILE_COLS + j for lane in range(plan.col_lanes) for j in range(TILE_COLS)
+                    if lo + lane * TILE_COLS + j < plan.cols_per_cta)
+    return cols
+
+
+def plan_args(plan):
+    """The plan's numbers in the order the C entries take them, after B, N,
+    D and H."""
+    return plan.cluster, plan.clusters, plan.col_lanes, plan.tile_rows
+
+
+def _entry(name):
+    fn = getattr(_build.load("gat_cycle.cu"), name)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
+    return fn
+
+
+def library_smem_bytes(b, n, d, heads, plan):
+    """The shared memory per CTA the library launches the plan with (the
+    build's own formula); -1 if the build refuses the plan."""
+    return _entry("gat_cycle_smem_bytes")(b, n, d, heads, *plan_args(plan))
+
+
+_resident: dict = {}
+
+
+def active_clusters(b, n, d, heads, plan):
+    """How many of the plan's clusters the card keeps resident at once
+    (``cudaOccupancyMaxActiveClusters``); raises if the card refuses."""
+    count = _entry("gat_cycle_active_clusters")(b, n, d, heads, *plan_args(plan))
+    if count <= 0:
+        raise RuntimeError(f"gat_cycle: the card keeps no cluster of {plan.cluster} CTAs resident (cudaError {-count})")
+    return count
+
+
+def card_plan(b, n, d, heads):
+    """``cycle_plan`` with the clusters of each size this card keeps
+    resident, asked once per device and dims (one CTA an SM, whatever the
+    tile)."""
+    key = (torch.cuda.current_device(), n, d, heads)
+    if key not in _resident:
+        _resident[key] = tuple((size, active_clusters(b, n, d, heads, cycle_plan(b, n, d, heads, cluster=size)))
+                               for size in cluster_sizes(d, heads))
+    return cycle_plan(b, n, d, heads, _resident[key])
 
 
 def _gat_block(x, scores, w, b, a, a_bias):
@@ -61,7 +284,7 @@ def _launch_fn():
     fn = _build.load("gat_cycle.cu").gat_cycle_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 14
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -83,11 +306,8 @@ def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj
     bsz, n, d = h.shape
     heads = ac.shape[0]
     hd = ac.shape[1] // 2
-    if n > MAX_NODES or d > MAX_DIM or d % 4 or heads * hd != d:
-        raise ValueError(
-            f"gat_cycle takes N <= {MAX_NODES}, D <= {MAX_DIM}, D % 4 == 0 and "
-            f"H*hd == D; got N={n}, D={d}, H={heads}, hd={hd}"
-        )
+    if heads * hd != d:
+        raise ValueError(f"gat_cycle takes H*hd == D; got D={d}, H={heads}, hd={hd}")
     _check("h", h, (bsz, n, d), dev)
     for name, t, shape in (
         ("wc", wc, (d, d)), ("bc", bc, (d,)), ("ac", ac, (heads, 2 * hd)), ("ac_bias", ac_bias, (heads,)),
@@ -104,8 +324,11 @@ def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj
         )
     if min(scores.stride()) < 0:
         raise ValueError("scores must have non-negative strides")
+    # h and the D x D weights are read 16 bytes at a time
+    h, wc, ws, proj_w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (h, wc, ws, proj_w))
     out, common, spec = (torch.empty_like(h) for _ in range(3))
     with torch.cuda.device(dev):
+        plan = card_plan(bsz, n, d, heads)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launch_fn()(
             h.data_ptr(), scores.data_ptr(), *scores.stride(),
@@ -113,7 +336,7 @@ def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj
             ws.data_ptr(), bs.data_ptr(), a_s.data_ptr(), as_bias.data_ptr(),
             proj_w.data_ptr(), proj_b.data_ptr(), score_w.data_ptr(),
             out.data_ptr(), common.data_ptr(), spec.data_ptr(),
-            bsz, n, d, heads, stream,
+            bsz, n, d, heads, *plan_args(plan), stream,
         )
     if err != 0:
         raise RuntimeError(f"gat_cycle launch failed: cudaError {err}")

@@ -18,6 +18,8 @@ another order crosses a rounding boundary, plus the fp32 tolerance for
 values near zero.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -150,21 +152,38 @@ def test_cluster_plan_shared_memory_is_the_builds(cuda):
             assert lstm_kernel.library_smem_bytes(lib, prefix, h) == want, (prefix, h)
 
 
+def _gat_inputs(rs, dev, b, n, d, heads, broadcast):
+    """h, scores (a stride-0 view of one score per clip, or a full
+    (B, N, hd) tensor) and the cycle's eleven weights, seeded."""
+    hd = d // heads
+    h = _t(rs, dev, b, n, d)
+    if broadcast:
+        scores = torch.from_numpy(rs.rand(b, n, 1).astype(np.float32)).to(dev).expand(b, n, hd)
+    else:
+        scores = torch.from_numpy(rs.rand(b, n, hd).astype(np.float32)).to(dev)
+    w = lambda *s: _t(rs, dev, *s, scale=1.0 / np.sqrt(s[0]))
+    args = (w(d, d), w(d), w(heads, 2 * hd), w(heads), w(d, d), w(d), w(heads, 2 * hd), w(heads),
+            w(d, d), w(d), w(d, 1))
+    return h, scores, args
+
+
 @pytest.mark.parametrize("b,n,d,heads,broadcast", [
     (5, 4, 64, 4, True),      # tile height 8, per-clip scores as a stride-0 view
     (9, 16, 768, 4, False),   # flagship width
     (3, 20, 200, 4, True),    # the largest tile, D not a multiple of the lanes
+    (1, 16, 768, 4, True),    # one video: one cluster
+    (32, 16, 768, 4, True),   # the serving batch
+    (40, 8, 768, 4, True),    # the smallest shipped clip count
+    (256, 8, 768, 4, True),   # the flagship batch at N = 8: a tile height that is not a multiple of 4
+    (30, 20, 768, 4, False),  # the largest shipped clip count
+    (255, 16, 768, 4, True),  # a batch that is not a multiple of the plan's videos per cluster
+    (255, 16, 768, 4, False),
 ])
 def test_gat_cycle_kernel_matches_plain(rs, cuda, b, n, d, heads, broadcast):
-    hd = d // heads
-    h = _t(rs, cuda, b, n, d)
-    if broadcast:
-        scores = torch.from_numpy(rs.rand(b, n, 1).astype(np.float32)).to(cuda).expand(b, n, hd)
-    else:
-        scores = torch.from_numpy(rs.rand(b, n, hd).astype(np.float32)).to(cuda)
-    w = lambda *s: _t(rs, cuda, *s, scale=1.0 / np.sqrt(s[0]))
-    args = (w(d, d), w(d), w(heads, 2 * hd), w(heads), w(d, d), w(d), w(heads, 2 * hd), w(heads),
-            w(d, d), w(d), w(d, 1))
+    h, scores, args = _gat_inputs(rs, cuda, b, n, d, heads, broadcast)
+    if b == 255:
+        plan = gat_kernel.card_plan(b, n, d, heads)
+        assert len({len(gat_kernel.cluster_videos(plan, b, c)) for c in range(plan.clusters)}) == 2
     before = gat_kernel.gat_cycle.launches
     got = gat_kernel.gat_cycle(h, scores, *args)
     torch.cuda.synchronize()
@@ -172,6 +191,35 @@ def test_gat_cycle_kernel_matches_plain(rs, cuda, b, n, d, heads, broadcast):
     want = gat_kernel.gat_cycle_reference(h, scores, *args)
     for a, r in zip(got, want):
         assert (a - r).abs().max().item() <= 1e-3 * max(1.0, r.abs().max().item())
+
+
+def test_gat_cycle_kernel_is_deterministic(rs, cuda):
+    """No atomics: the cluster's partial scores are summed in CTA order, so
+    two launches on the same inputs give the same bits."""
+    h, scores, args = _gat_inputs(rs, cuda, 37, 16, 768, 4, True)
+    first = gat_kernel.gat_cycle(h, scores, *args)
+    second = gat_kernel.gat_cycle(h, scores, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gat_cycle_plan_shared_memory_is_the_builds(cuda):
+    """The plan's shared memory per CTA (``gat_kernel.smem_bytes``) is what
+    the library launches with, at the shipped and the tested dims and
+    batches; the library refuses a plan it cannot run."""
+    for n, d, heads in ((8, 768, 4), (16, 768, 4), (20, 768, 4), (4, 64, 4), (20, 200, 4), (20, 768, 1),
+                        (20, 764, 4), (20, 768, 3)):
+        for b in (1, 5, 32, 256):
+            for plan in (gat_kernel.cycle_plan(b, n, d, heads), gat_kernel.card_plan(b, n, d, heads)):
+                assert gat_kernel.library_smem_bytes(b, n, d, heads, plan) == plan.smem_bytes, (n, d, heads, b)
+                assert gat_kernel.active_clusters(b, n, d, heads, plan) >= 1
+    fn = gat_kernel._build.load("gat_cycle.cu").gat_cycle_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
+    for bad in ((256, 16, 768, 4, 4, 64, 17, 8), (256, 16, 768, 4, 3, 64, 16, 8), (256, 16, 768, 4, 4, 16, 16, 8),
+                (32, 21, 768, 4, 4, 32, 16, 8), (32, 16, 772, 4, 4, 32, 16, 8), (32, 16, 768, 4, 16, 32, 16, 8),
+                (32, 16, 768, 4, 4, 33, 16, 8), (32, 16, 768, 4, 4, 32, 16, 3), (32, 16, 768, 4, 4, 32, 16, 9)):
+        assert fn(*bad) == -1, bad
 
 
 @pytest.mark.parametrize("unit_layers,graph_layers", [(1, 1), (2, 1), (1, 2)])
