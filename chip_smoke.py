@@ -56,7 +56,26 @@ streaming path):
     bound, and cuBLAS's bf16 GEMM of the same operands for context; then
     the port's probe (``dualvgr_tpu_torch/bench/proj_probe.py``),
     v0-v4, one line, and one call of its v2, whose 2 launches of kernel 5
-    (and 2 of the tanh pass) are counted.
+    (and 2 of the tanh pass) are counted;
+13. cli: the CLIs on an MSRVTT-QA-shaped dataset built in memory at the
+    flagship width (384 videos, 805 MB of appearance and 50 MB of motion
+    in FeatureStores; 640 training, 256 validation and 300 test
+    questions; a YAML config, save_dir in a temporary directory):
+    ``dualvgr_tpu_torch.train.train`` for 2 epochs (kernels 3 and 4 three
+    times a step, kernels 1 and 2 three and two times a validation
+    forward), the metrics_jsonl records, the profiler's trace of epoch
+    2; the final state saved and restored on the card (every field bit
+    for bit, a step from each within the train limits); then
+    ``dualvgr_tpu_torch.validate.run`` on the best checkpoint, kernel
+    path against plain path (argmax agreement, each accuracy within the
+    disagreeing rows), test_preds.json; the rates through the loader
+    beside the model-alone ones (epoch wall time and QA/s, validation
+    QA/s, host gather and host-to-device copy per batch, the device's
+    busy share over an epoch), the host's CPU count, whether h5py
+    imports;
+14. cli bf16: the validate CLI with compute and transfer dtype
+    bfloat16 on the same checkpoint, its launches, its logits against
+    the fp32 kernel path's within the bf16 limits, and its rates.
 
 Kernels 1, 3 and 4 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
 shape, their launch plan (cluster size, the clusters the card keeps
@@ -75,10 +94,17 @@ the fp32 paths, the plain versions and the yardsticks are fp32.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
+import importlib.util
+import io
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -86,11 +112,15 @@ import numpy as np
 import torch
 
 from dualvgr_tpu_torch import (
-    BatchingEngine, build_model, build_predict_fn, create_train_state, make_optimizer, train_step,
+    BatchingEngine, build_model, build_predict_fn, create_train_state, make_optimizer, pred_step, train_step,
+    validate_lib,
 )
+from dualvgr_tpu_torch import train as ttrain
+from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch.bench import proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
-from dualvgr_tpu_torch.config import cfg_from_file
+from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
+from dualvgr_tpu_torch.data import FeatureStore
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops import gat_kernel
@@ -107,7 +137,10 @@ from dualvgr_tpu_torch.ops.proj_kernel import (
     input_proj_both, input_proj_both_reference, input_proj_one, input_proj_one_reference, tanh_to_bf16,
     tanh_to_bf16_reference,
 )
+from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+from dualvgr_tpu_torch.train import model_kwargs_tosave
 from dualvgr_tpu_torch.train_lib import forward_backward
+from dualvgr_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 FLAGSHIP = dict(
     vision_dim=2048, module_dim=768, word_dim=300, question_vocab_size=8000,
@@ -839,7 +872,7 @@ def phase_train(batch, compute_dtype="float32"):
         launches=f"bilstm_train_fwd:{launches[2]},bilstm_train_bwd:{launches[3]},"
                  f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]}")
     profile_run(f"{tag} profile", lambda: train_step(state, batch, alpha=ALPHA, beta=BETA))
-    return launches
+    return launches, ms
 
 
 def tanh_case(x):
@@ -1034,6 +1067,364 @@ def train_batch(gen):
     return app, mot, q, qlen, answers, valid
 
 
+# --- phases cli and cli bf16: the CLIs on a dataset held in memory ---
+# MSRVTT-QA's shape at the flagship width (configs/msrvtt_qa_DualVGR_16.yml):
+# 384 videos (805 MB of fp32 appearance, 50 MB of motion) in FeatureStores
+# built in memory; 640 training questions (two full batches and a padded
+# final batch of 128), 256 for validation, 300 for the test (a full batch
+# and a padded one of 44); answers drawn at random from five answer words,
+# so that within six steps the model moves toward them (a best-on-val
+# checkpoint exists) while each row's prediction among them still follows
+# its features
+CLI_VIDEOS, CLI_SPLITS, CLI_EPOCHS = 384, {"train": 640, "val": 256, "test": 300}, 2
+CLI_LR = 1e-3
+CLI_ANSWER_IDS = (3, 10, 17, 24, 31)
+BUCKET_WORDS = ("what", "who", "how", "when", "where")
+# the tpu.metrics_jsonl fields of the JAX train.py (its train.py:281-305, :324-331)
+CLI_TRAIN_KEYS = {"type", "wall_s", "epoch", "step", "ce", "avg_loss", "batch_acc", "avg_acc", "lr"}
+CLI_VAL_KEYS = {"type", "wall_s", "epoch", "acc", "categories", "best"}
+
+
+def cli_dataset(root):
+    """The phase's dataset under ``root``: vocab, question pickles and the
+    YAML config (save_dir and the profiler's directory under ``root``);
+    the features as (appearance, motion) pairs of in-memory FeatureStores
+    by store dtype: float32, and bfloat16 cast once from the same arrays
+    (as a bf16 run caches an HDF5 file). Everything from fixed seeds."""
+    vd, name = FLAGSHIP["vision_dim"], "msrvtt-qa"
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    app = torch.randn((CLI_VIDEOS, CLIPS, FRAMES, vd), generator=gen, device="cuda").cpu()
+    mot = torch.randn((CLI_VIDEOS, CLIPS, vd), generator=gen, device="cuda").cpu()
+    video_ids = np.arange(1000, 1000 + CLI_VIDEOS)
+    stores = {dt: (FeatureStore.from_array(video_ids, app, "resnet_features", store_dtype=dt),
+                   FeatureStore.from_array(video_ids, mot, "resnext_features", store_dtype=dt))
+              for dt in ("float32", "bfloat16")}
+    words = {"<NULL>": 0, "<UNK>": 1, **{w: 2 + i for i, w in enumerate(BUCKET_WORDS)}}
+    words.update({f"word{i}": i for i in range(len(words), FLAGSHIP["question_vocab_size"])})
+    answers = {f"ans{i}": i for i in range(FLAGSHIP["num_answers"])}
+    with open(os.path.join(root, f"{name}_vocab.json"), "w") as f:
+        json.dump({"question_token_to_idx": words, "answer_token_to_idx": answers,
+                   "question_answer_token_to_idx": {"<NULL>": 0, "<UNK>": 1}}, f)
+    rng = np.random.RandomState(7)
+    qid = 0
+    for split, n in CLI_SPLITS.items():
+        qlen = rng.randint(4, QLEN + 1, n).astype(np.int32)
+        q = rng.randint(2 + len(BUCKET_WORDS), FLAGSHIP["question_vocab_size"], (n, QLEN)).astype(np.int32)
+        q[:, 0] = 2 + np.arange(n) % len(BUCKET_WORDS)
+        q[np.arange(QLEN)[None, :] >= qlen[:, None]] = 0
+        vids = rng.choice(video_ids, n)
+        obj = {"questions": q, "questions_len": qlen, "question_id": list(range(qid, qid + n)),
+               "video_ids": vids, "video_names": [f"video{v}" for v in vids],
+               "answers": rng.choice(CLI_ANSWER_IDS, n).tolist(),
+               "glove": (rng.randn(len(words), FLAGSHIP["word_dim"]) * 0.1).astype(np.float32)
+               if split == "train" else None}
+        qid += n
+        with open(os.path.join(root, f"{name}_{split}_questions.pt"), "wb") as f:
+            pickle.dump(obj, f)
+    cfg_path = os.path.join(root, "cli_smoke.yml")
+    with open(cfg_path, "w") as f:
+        f.write(f"""seed: 666
+exp_name: 'cliSmoke'
+model_type: 'DualVGR'
+graph_module: 'GAT'
+graph_layers: 1
+train:
+  lr: {CLI_LR}
+  batch_size: {BATCH}
+  max_epochs: {CLI_EPOCHS}
+  vision_dim: {vd}
+  word_dim: {FLAGSHIP["word_dim"]}
+  module_dim: {FLAGSHIP["module_dim"]}
+  glove: True
+  num_of_nodes: {FLAGSHIP["num_of_nodes"]}
+val:
+  flag: True
+test:
+  write_preds: True
+dataset:
+  name: '{name}'
+  data_dir: '{root}'
+  save_dir: '{root}/results/'
+tpu:
+  metrics_jsonl: 'metrics.jsonl'
+  profile_dir: '{root}/profile'
+""")
+    return cfg_path, stores
+
+
+def cli_run_validate(cfg, stores, **tpu):
+    """``validate.run`` on the best checkpoint with ``tpu`` keys set; its
+    printed lines kept out of this script's output. Returns (accuracy
+    tuple, predictions by question id, first words by question id, the
+    launches)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.tpu.update(tpu)
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        accs = tvalidate.run(cfg, 1, feature_stores=stores)
+    torch.cuda.synchronize()
+    launches = counts()
+    check("Test Accuracy" in out.getvalue(), "validate.run printed no Test Accuracy")
+    preds = json.load(open(os.path.join(cfg.dataset.save_dir, cfg.exp_name, "preds", "test_preds.json")))
+    check(len(preds) == CLI_SPLITS["test"], f"test_preds.json holds {len(preds)} entries")
+    return (accs, {p["question_id"]: p["prediction"] for p in preds},
+            {p["question_id"]: p["question"][0] for p in preds}, launches)
+
+
+def cli_agreement(tag, accs, preds, ref_accs, ref_preds, first):
+    """The overall and per-bucket accuracy of a run against a reference
+    run: each may differ by at most the rows whose predictions differ,
+    over the rows it counts. Returns the argmax agreement."""
+    differ = {q for q in ref_preds if preds[q] != ref_preds[q]}
+    buckets = [set(ref_preds)] + [{q for q in ref_preds if first[q] == w} for w in BUCKET_WORDS]
+    for name, a, r, rows in zip(("all",) + BUCKET_WORDS, accs, ref_accs, buckets):
+        check(abs(a - r) <= len(differ & rows) / max(len(rows), 1) + 1e-12,
+              f"{tag}: {name} accuracy {a} against {r} with {len(differ & rows)} of {len(rows)} rows differing")
+    return 1.0 - len(differ) / len(ref_preds)
+
+
+def state_fields(state):
+    """Every field a checkpoint holds, as CPU tensors and numbers."""
+    adam = state.adam.state_dict()
+    return ({k: v.cpu() for k, v in state.model.state_dict().items()},
+            {(i, k): v.cpu() for i, s in adam["state"].items() for k, v in s.items()},
+            (state.step, state.updates, state.mini_step), [a.cpu() for a in state.acc_grads],
+            state.generator.get_state())
+
+
+def cli_checkpoint(cfg, state, vocab, batch, root):
+    """The final train state saved and restored on the card: every field
+    bit for bit, then one step's loss and module gradient norms from the
+    restored state against a step from the saved one, on the same batch
+    and the same dropout draws (the generators restored)."""
+    ckpt = os.path.join(root, "ckpt_check")
+    save_checkpoint(ckpt, CLI_EPOCHS - 1, state, model_kwargs_tosave(cfg))
+    twin = create_train_state(ttrain.build_model(cfg, vocab, "cuda"), state.optimizer, seed=1)
+    restore_checkpoint(ckpt, twin)
+    (sa, aa, ca, ga, gen_a), (sb, ab, cb, gb, gen_b) = state_fields(state), state_fields(twin)
+    check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa), "restored params differ")
+    check(aa.keys() == ab.keys() and all(torch.equal(aa[k], ab[k]) for k in aa), "restored Adam moments differ")
+    check(ca == cb and len(ga) == len(gb) and all(torch.equal(x, y) for x, y in zip(ga, gb)),
+          f"restored counts {cb} against {ca}")
+    check(torch.equal(gen_a, gen_b), "restored generator state differs")
+    m_a = forward_backward(state, batch, alpha=ALPHA, beta=BETA)
+    gn_a = module_grad_norms(state.model)
+    m_b = forward_backward(twin, batch, alpha=ALPHA, beta=BETA)
+    gn_b = module_grad_norms(twin.model)
+    rel_loss = abs(m_a["loss"].item() - m_b["loss"].item()) / max(abs(m_a["loss"].item()), 1e-9)
+    rel_gn = max(abs(gn_a[k] - gn_b[k]) / max(gn_a[k], 1e-12) for k in gn_a)
+    check(rel_loss <= TOL_TRAIN_LOSS, f"step from the restored state: loss rel {rel_loss:.2e}")
+    check(rel_gn <= TOL_TRAIN_GNORM, f"step from the restored state: module gradient norm rel {rel_gn:.2e}")
+    state.model.zero_grad(set_to_none=True)
+    del twin
+    return rel_loss, rel_gn
+
+
+def host_batches(loader):
+    for b in loader:
+        yield (b.appearance_feat, b.motion_feat, b.question, b.question_len, b.answer, b.valid)
+
+
+def epoch_through(state, batches, cfg):
+    """One training epoch as the train CLI runs it: host ``batches``
+    through ``prefetch_to_device`` into ``train_step``."""
+    for batch in prefetch_to_device(batches, "cuda", size=cfg.tpu.prefetch):
+        train_step(state, batch, alpha=ALPHA, beta=BETA)
+
+
+def timed_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def host_copy_ms(loader, store, reps=5):
+    """One batch's features from ``store`` as the loader assembles them
+    (gathered, cast to the transfer dtype where the store's differs, into
+    a pinned tensor; ms, host clock) and their host-to-device copy (ms,
+    CUDA events). Returns the two times and the batch's bytes."""
+    rows = np.random.RandomState(3).randint(0, CLI_VIDEOS, BATCH)
+    pinned = loader._gather(store, rows)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pinned = loader._gather(store, rows)
+    gather_ms = (time.perf_counter() - t0) / reps * 1e3
+    check(pinned.is_pinned(), "the loader's batch is not pinned")
+    dev = torch.empty(pinned.shape, dtype=pinned.dtype, device="cuda")
+    copy_ms = time_ms(lambda: dev.copy_(pinned, non_blocking=True), reps)
+    check(torch.equal(dev.cpu(), pinned), "the pinned batch's copy differs")
+    return gather_ms, copy_ms, pinned.numel() * pinned.element_size()
+
+
+def validation_rate(cfg, state, loader, reps=2):
+    """QA/s of ``validate_lib.validate`` through ``loader`` (host clock to
+    the last answer), after one warm pass."""
+    validate_lib.validate(cfg, pred_step, state, loader, device="cuda", prefetch=cfg.tpu.prefetch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        validate_lib.validate(cfg, pred_step, state, loader, device="cuda", prefetch=cfg.tpu.prefetch)
+    return reps * loader.num_samples / (time.perf_counter() - t0)
+
+
+def phase_cli(root, model_ms):
+    """The train CLI for two epochs, then the validate CLI on the
+    best checkpoint, kernel path and plain path (phase ``cli``); the
+    launches of kernels 1-4 counted over each CLI's run."""
+    t_phase = time.perf_counter()
+    cfg_path, all_stores = cli_dataset(root)
+    stores = all_stores["float32"]
+    raw = cfg_from_file(cfg_path)
+    cfg = copy.deepcopy(raw)
+    cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+    cfg.alpha, cfg.beta, cfg.unit_layers = ALPHA, BETA, 1
+    cfg = resolve_dataset_paths(cfg)
+
+    n_steps = CLI_EPOCHS * -(-CLI_SPLITS["train"] // BATCH)
+    n_val = CLI_EPOCHS * -(-CLI_SPLITS["val"] // BATCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        best_val, state = ttrain.train(cfg, feature_stores=stores)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counts()
+    want = tuple(a * n_steps + b * n_val for a, b in zip(TRAIN_LAUNCHES["float32"], EVAL_LAUNCHES["float32"]))
+    check(launches == want, f"train() ran {n_steps} steps and {n_val} validation forwards with launches "
+                            f"{launches}, want {want}")
+    check(0.0 < best_val <= 1.0, f"best val accuracy {best_val}: no best checkpoint")
+    log = os.path.join(cfg.dataset.save_dir, "log", "metrics.jsonl")
+    records = [json.loads(ln) for ln in open(log)]
+    train_recs = [r for r in records if r["type"] == "train"]
+    val_recs = [r for r in records if r["type"] == "val"]
+    check(len(train_recs) == n_steps and len(val_recs) == CLI_EPOCHS,
+          f"metrics_jsonl: {len(train_recs)} train and {len(val_recs)} val records")
+    check(all(set(r) == CLI_TRAIN_KEYS for r in train_recs) and all(set(r) == CLI_VAL_KEYS for r in val_recs),
+          "metrics_jsonl records lack the JAX train.py's fields")
+    check(all(np.isfinite(r["ce"]) for r in train_recs), "non-finite ce in metrics_jsonl")
+    traces = os.listdir(cfg.tpu.profile_dir)
+    check(traces == [f"trace_epoch{CLI_EPOCHS - 1}.json"], f"profile_dir holds {traces}")
+
+    # the checkpoint on the card
+    loader = ttrain.make_loader(cfg, cfg.dataset.train_question_pt, shuffle=False, device="cuda",
+                                feature_stores=stores)
+    b = next(iter(loader))
+    batch = tuple(torch.as_tensor(x).cuda() for x in (b.appearance_feat, b.motion_feat, b.question,
+                                                       b.question_len, b.answer, b.valid))
+    rel_loss, rel_gn = cli_checkpoint(cfg, state, loader.vocab, batch, root)
+    del batch, b
+
+    # the validate CLI: kernel path, then plain path, same checkpoint
+    accs, preds, first, val_launches = cli_run_validate(raw, stores)
+    n_fwd = -(-CLI_SPLITS["test"] // BATCH)
+    want = tuple(n * n_fwd for n in EVAL_LAUNCHES["float32"])
+    check(val_launches == want, f"validate.run launched {val_launches}, want {want}")
+    plain_accs, plain_preds, _, plain_launches = cli_run_validate(raw, stores, use_pallas=False)
+    check(plain_launches == (0,) * len(KERNELS), f"the plain path launched {plain_launches}")
+    agree = cli_agreement("cli kernel vs plain", accs, preds, plain_accs, plain_preds, first)
+    check(agree >= MIN_ARGMAX_AGREEMENT, f"cli: argmax agreement {agree} < {MIN_ARGMAX_AGREEMENT}")
+
+    # rates through the loader, beside the model alone; and an epoch of the
+    # same batches gathered beforehand (no producer thread beside the steps)
+    epoch_through(state, host_batches(loader), cfg)  # warm
+    epoch_s = timed_s(lambda: epoch_through(state, host_batches(loader), cfg))
+    gathered = list(host_batches(loader))
+    pregathered_s = timed_s(lambda: epoch_through(state, iter(gathered), cfg))
+    del gathered
+    profile_run("cli train epoch profile", lambda: epoch_through(state, host_batches(loader), cfg))
+    val_qa_s = validation_rate(cfg, state, loader)
+    gather_app, copy_app, bytes_app = host_copy_ms(loader, stores[0])
+    gather_mot, copy_mot, bytes_mot = host_copy_ms(loader, stores[1])
+    say("cli", seconds=f"{time.perf_counter() - t_phase:.1f}", train_s=f"{train_s:.2f}", epochs=CLI_EPOCHS, steps=n_steps, best_val=f"{best_val:.4f}",
+        test_acc=f"{accs[0]:.4f}", plain_test_acc=f"{plain_accs[0]:.4f}", argmax_agreement=f"{agree:.4f}",
+        restore_bit_exact=True, restored_step_rel_loss=f"{rel_loss:.2e}", restored_step_gnorm_rel=f"{rel_gn:.2e}",
+        launches_train=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, launches) if n),
+        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, val_launches) if n))
+    say("cli rates", epoch_s=f"{epoch_s:.3f}", epoch_qa_per_s=f"{CLI_SPLITS['train'] / epoch_s:.1f}",
+        step_ms_through_loader=f"{epoch_s / (n_steps // CLI_EPOCHS) * 1e3:.3f}",
+        epoch_s_pregathered=f"{pregathered_s:.3f}",
+        train_step_ms_model_alone=f"{model_ms['train']:.3f}",
+        val_qa_per_s=f"{val_qa_s:.1f}", eval_qa_per_s_model_alone=f"{BATCH / model_ms['eval'] * 1e3:.1f}",
+        gather_ms_per_batch=f"{gather_app + gather_mot:.3f}", gather_app_ms=f"{gather_app:.3f}",
+        h2d_ms_per_batch=f"{copy_app + copy_mot:.3f}", h2d_gb_per_s=f"{(bytes_app + bytes_mot) / (copy_app + copy_mot) / 1e6:.2f}",
+        batch_mb=f"{(bytes_app + bytes_mot) / 1e6:.1f}", cpu_count=os.cpu_count(),
+        h5py_importable=importlib.util.find_spec("h5py") is not None)
+    del state
+    torch.cuda.empty_cache()
+    return raw, all_stores, launches, val_launches, accs, preds, first
+
+
+def phase_cli_bf16(raw, all_stores, accs, preds, first, model_ms):
+    """The validate CLI in bf16 (compute and transfer) on the same
+    checkpoint, against the fp32 kernel path: its launches, and the bf16
+    limits on the test split's logits (computed beside it through
+    ``validate_lib.validate`` from the same checkpoint)."""
+    t_phase = time.perf_counter()
+    stores = all_stores["bfloat16"]
+    bf16 = dict(compute_dtype="bfloat16", transfer_dtype="bfloat16")
+    b_accs, b_preds, _, launches = cli_run_validate(raw, stores, **bf16)
+    n_fwd = -(-CLI_SPLITS["test"] // BATCH)
+    want = tuple(n * n_fwd for n in EVAL_LAUNCHES["bfloat16"])
+    check(launches == want, f"bf16 validate.run launched {launches}, want {want}")
+
+    # the logits of both paths from the best checkpoint
+    cfg = copy.deepcopy(raw)
+    cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+    cfg.unit_layers = 1
+    cfg = resolve_dataset_paths(cfg)
+    logits = {}
+    state = None
+    for dtype in ("float32", "bfloat16"):
+        cfg.tpu.transfer_dtype = dtype
+        loader = ttrain.make_loader(cfg, cfg.dataset.test_question_pt, shuffle=False, device="cuda",
+                                    feature_stores=all_stores[dtype])
+        if state is None:
+            state = create_train_state(ttrain.build_model(cfg, loader.vocab, "cuda"),
+                                       make_optimizer(cfg.train.lr, len(loader)), seed=0)
+            restore_checkpoint(os.path.join(cfg.dataset.save_dir, "ckpt"), state)
+            state.model.eval()
+        state.model.compute_dtype = dtype
+        rows = []
+
+        def keep_logits(s, inputs):
+            rows.append(s.model(*map(torch.as_tensor, inputs)).logits)
+            return rows[-1]
+
+        validate_lib.validate(cfg, keep_logits, state, loader, device="cuda")
+        logits[dtype] = torch.cat(rows)[: CLI_SPLITS["test"]]
+    qids = sorted(preds)  # the loader's order: question ids ascending
+    ref, got = logits["float32"], logits["bfloat16"]
+    scale, err = ref.abs().max().item(), max_err(got, ref)
+    check(err <= TOL_BF16_LOGITS * scale, f"cli bf16 logits max abs err {err:.3e} > {TOL_BF16_LOGITS} * {scale:.3e}")
+    top2 = ref.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    flips = [i for i, q in enumerate(qids) if b_preds[q] != preds[q]]
+    unexplained = [i for i in flips if margin[i] > 2 * err]
+    check(not unexplained, f"cli bf16: {len(unexplained)} argmax flips on rows whose fp32 top-2 margin exceeds "
+                           f"2 x {err:.3e}")
+    agree = cli_agreement("cli bf16 vs fp32", b_accs, b_preds, accs, preds, first)
+    cfg.tpu.compute_dtype = cfg.tpu.transfer_dtype = "bfloat16"
+    loader = ttrain.make_loader(cfg, cfg.dataset.train_question_pt, shuffle=False, device="cuda",
+                                feature_stores=stores)
+    state.model.train()
+    val_qa_s = validation_rate(cfg, state, loader)
+    gather_app, copy_app, bytes_app = host_copy_ms(loader, stores[0])
+    gather_mot, copy_mot, bytes_mot = host_copy_ms(loader, stores[1])
+    # context: the same batch gathered from the fp32 store and cast on the host
+    cast_app, _, _ = host_copy_ms(loader, all_stores["float32"][0])
+    cast_mot, _, _ = host_copy_ms(loader, all_stores["float32"][1])
+    say("cli bf16", seconds=f"{time.perf_counter() - t_phase:.1f}", test_acc=f"{b_accs[0]:.4f}", fp32_test_acc=f"{accs[0]:.4f}", argmax_agreement=f"{agree:.4f}",
+        flips=len(flips), logits_max_abs_err=f"{err:.3e}", rel_to_max_logit=f"{err / scale:.3e}",
+        tol=f"{TOL_BF16_LOGITS}*max|logit|",
+        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, launches) if n),
+        val_qa_per_s=f"{val_qa_s:.1f}", eval_bf16_qa_per_s_model_alone=f"{BATCH / model_ms['eval bf16'] * 1e3:.1f}",
+        gather_ms_per_batch=f"{gather_app + gather_mot:.3f}", gather_app_ms=f"{gather_app:.3f}",
+        h2d_ms_per_batch=f"{copy_app + copy_mot:.3f}", batch_mb=f"{(bytes_app + bytes_mot) / 1e6:.1f}",
+        gather_cast_from_fp32_store_ms_per_batch=f"{cast_app + cast_mot:.3f}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, cases, per, library, side_cases=(), peak=PEAK_FP32_FLOPS,
                  **extra):
     """One row of the kernels line: the sums over the cases of one step or
@@ -1064,10 +1455,11 @@ def main():
     app, mot, q, qlen = flagship_inputs(BATCH, gen)
     lstm_cases = phase_bilstm(model, app, q, qlen)
     gat_cases, gat_serve_cases = phase_gat(model, app, mot, q, qlen)
-    _, fp32_logits = phase_eval(model, app, mot, q, qlen)
+    model_ms = {}
+    model_ms["eval"], fp32_logits = phase_eval(model, app, mot, q, qlen)
     lstm_bf16, fwd_bf16, bwd_bf16 = phase_bilstm_bf16(model, app, q, qlen,
                                                      torch.Generator(device="cuda").manual_seed(4))
-    phase_eval_bf16(model, app, mot, q, qlen, fp32_logits)
+    model_ms["eval bf16"] = phase_eval_bf16(model, app, mot, q, qlen, fp32_logits)
     model.compute_dtype = "float32"
     del app, mot
     torch.cuda.empty_cache()
@@ -1080,12 +1472,17 @@ def main():
     fwd_cases, bwd_cases = phase_bilstm_train(model, batch[0], batch[2], batch[3])
     del model
     torch.cuda.empty_cache()
-    train_launches = phase_train(batch)
+    train_launches, model_ms["train"] = phase_train(batch)
     torch.cuda.empty_cache()
-    train_bf16_launches = phase_train(batch, "bfloat16")
+    train_bf16_launches, _ = phase_train(batch, "bfloat16")
     del batch
     torch.cuda.empty_cache()
     k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
+        cli_bf16 = phase_cli_bf16(raw, stores, accs, preds, first, model_ms)
+        del stores
 
     # kernel 1 once at each of its three shapes per flagship forward, kernel
     # 2 once per stream; kernels 3 and 4 once at each of the three shapes
@@ -1094,29 +1491,37 @@ def main():
     # 5 and 6 are rows per call at R = 4096 (batch 256), R = 512 (batch 32)
     # listed beside it, bound at the bf16 tensor-core peak.
     eval_shapes = "appearance + question_outputs + question_final"
+
+    def cli_launches(i):
+        """Kernel i's launches in phases cli (train and validate CLIs)
+        and cli bf16 (the validate CLI)."""
+        return dict(launches_cli_train=cli_train[i], launches_cli_validate=cli_val[i],
+                    launches_cli_bf16_validate=cli_bf16[i])
+
     kernels = [
         kernel_entry("bilstm_recurrence", "dualvgr_tpu_torch/csrc/bilstm_recurrence.cu",
                      "dualvgr_tpu/ops/lstm_pallas.py:107", serve_launches[0], lstm_cases,
                      f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
                      "bf16-gate shapes", library=True, side_cases=lstm_bf16,
-                     launches_bf16=serve_bf16_launches[0]),
+                     launches_bf16=serve_bf16_launches[0], **cli_launches(0)),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
                      "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
                      "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
                      f"forward too); *_b{SERVE_BATCH}: the same streams' first {SERVE_BATCH} videos (a served "
-                     "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1]),
+                     "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1],
+                     **cli_launches(1)),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "
                      "training-mode forward, input projection included; appearance_bf16: the bf16 "
                      "step's bf16 gates", library=True, side_cases=[fwd_bf16],
-                     launches_bf16=train_bf16_launches[2]),
+                     launches_bf16=train_bf16_launches[2], **cli_launches(2)),
         kernel_entry("bilstm_train_bwd", "dualvgr_tpu_torch/csrc/bilstm_train_bwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:239", train_launches[3], bwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN backward, "
                      "dX, dW_ih, dW_hh and the biases' gradients included; appearance_bf16: the bf16 "
                      "step's bf16 gates", library=True, side_cases=[bwd_bf16],
-                     launches_bf16=train_bf16_launches[3]),
+                     launches_bf16=train_bf16_launches[3], **cli_launches(3)),
         kernel_entry("input_proj_one", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:68", n5, k5_cases[:1],
                      "two launches (forward, time-reversed) at R = 4096, as the probe's v2; R512 at batch "
@@ -1129,11 +1534,11 @@ def main():
                      "batch 256); R512 at batch 32; library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: "
                      "the form on bf16 x (the bf16 train step's); tanh_to_bf16: the tanh pass alone",
                      library=True, side_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
-                     launches_train_bf16=train_bf16_launches[5], library_v1_ms=k6_cases[0]["library_v1_ms"],
+                     launches_train_bf16=train_bf16_launches[5], **cli_launches(5), library_v1_ms=k6_cases[0]["library_v1_ms"],
                      bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"],
                      tanh_to_bf16=dict(
                          source="dualvgr_tpu_torch/csrc/input_proj.cu", replaces="benchmarks/proj_probe.py:124",
-                         launches=serve_bf16_launches[6], max_abs_err=tanh_cases[0]["err"],
+                         launches=serve_bf16_launches[6], **cli_launches(6), max_abs_err=tanh_cases[0]["err"],
                          **{k: tanh_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                          per="one call on the R = 4096 x; library: torch.tanh(x, out=bf16); R512 at batch 32",
                          shapes={c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}

@@ -11,10 +11,14 @@ package's ``tpu`` section key for key, a type-checked YAML overlay and
 The resolvers (``resolved_compute_dtype``, ``resolved_use_kernels``,
 ``model_runtime_kwargs``) take the device explicitly: the device is an
 argument of the port's entry points (``build_model``, ``build_predict_fn``,
-``BatchingEngine``), never something read from the config. Of the ``tpu``
-keys the port honours ``compute_dtype`` and ``use_pallas`` (as
-``use_kernels``); the others parse and are held at their defaults until the
-slices that use them (``UNHONOURED_TPU_KEYS``).
+``BatchingEngine``, the train and validate CLIs), never something read
+from the config. Of the ``tpu`` keys, ``compute_dtype`` and ``use_pallas``
+(as ``use_kernels``) are model arguments; the data and CLI keys
+(``feature_cache_gb``, ``prefetch``, ``transfer_dtype``, ``log_every``,
+``profile_dir``, ``grad_accum``, ``autosave``, ``metrics_jsonl``) are read
+by ``dualvgr_tpu_torch.train`` and ``.validate``; the multi-device keys
+parse and are held at their defaults (``UNHONOURED_TPU_KEYS``), and
+``prng_impl`` may only be "auto" (``model_runtime_kwargs``).
 """
 
 from __future__ import annotations
@@ -123,11 +127,9 @@ def default_config() -> Config:
 
 # tpu keys that parse but that no code of the port reads yet: a value other
 # than the default is refused by ``model_runtime_kwargs`` (ROADMAP.md, queue
-# 1: the loader and CLI slice and the slices after it)
-UNHONOURED_TPU_KEYS = (
-    "mesh_axis", "feature_cache_gb", "prefetch", "transfer_dtype", "log_every", "profile_dir",
-    "tensor_parallel", "zero_opt", "grad_accum", "prng_impl", "autosave", "metrics_jsonl",
-)
+# 1, item 4: multi-device). The data and CLI keys are read by the train
+# and validate CLIs (``dualvgr_tpu_torch/train.py``, ``validate.py``).
+UNHONOURED_TPU_KEYS = ("mesh_axis", "tensor_parallel", "zero_opt")
 
 
 def _merge_into(yaml_cfg: dict, cfg: Config, path: str = "") -> None:
@@ -213,13 +215,20 @@ def model_runtime_kwargs(cfg: Config, device) -> dict:
     """The ``cfg.tpu`` knobs that are ``build_model`` arguments, for a model
     on ``device``: ``{"use_kernels": ..., "compute_dtype": ...}``. Raises if
     a key the port does not honour yet (``UNHONOURED_TPU_KEYS``) is set
-    away from its default, rather than run without it."""
+    away from its default, rather than run without it, and if
+    ``prng_impl`` names one of JAX's generators."""
     defaults = default_config().tpu
     set_keys = [k for k in UNHONOURED_TPU_KEYS if cfg.tpu.get(k, defaults[k]) != defaults[k]]
     if set_keys:
         raise NotImplementedError(
             f"tpu.{', tpu.'.join(set_keys)} {'is' if len(set_keys) == 1 else 'are'} not honoured by "
             "the port yet (ROADMAP.md); leave them at their defaults"
+        )
+    prng = cfg.tpu.get("prng_impl", "auto")
+    if prng != "auto":
+        raise NotImplementedError(
+            f"tpu.prng_impl={prng!r} names a JAX random-number generator (threefry2x32, rbg), which "
+            "torch does not have: the port draws dropout from a torch.Generator; leave it at 'auto'"
         )
     return {
         "use_kernels": resolved_use_kernels(cfg, device),

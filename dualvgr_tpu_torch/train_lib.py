@@ -20,6 +20,8 @@ one Adam update. Three details follow optax, which the JAX package uses:
 
 The state is updated in place; ``train_step`` returns the metrics as 0-d
 tensors on the model's device, so a loop need not wait for the card.
+``pred_step`` is the eval forward with the argmax on the device (the JAX
+package's ``jit_pred_step``), for validation.
 """
 
 from __future__ import annotations
@@ -197,3 +199,24 @@ def train_step(state: TrainState, batch, *, alpha: float, beta: float) -> dict:
     metrics = forward_backward(state, batch, alpha=alpha, beta=beta)
     apply_gradients(state)
     return metrics
+
+
+def pred_step(state_or_model, batch) -> torch.Tensor:
+    """The predicted answer ids (B,) on the model's device for ``batch`` =
+    (app, motion, question, qlen), numpy arrays or tensors.
+
+    Runs the eval-mode forward under ``torch.no_grad()`` and takes the
+    argmax on the device, so only B ints need cross to the host; then puts
+    the model back in the mode it found it in (a train state holds its
+    model in training mode, and validating in it would run dropout and
+    batch statistics)."""
+    model = state_or_model.model if isinstance(state_or_model, TrainState) else state_or_model
+    device = next(model.parameters()).device
+    app, mot, q, qlen = (torch.as_tensor(a, device=device) for a in batch)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(app, mot, q, qlen).logits.argmax(dim=1)
+    finally:
+        model.train(was_training)

@@ -78,13 +78,36 @@ def test_resolvers_take_the_device():
         tconfig.resolved_compute_dtype(cfg, "cuda")
 
 
-@pytest.mark.parametrize("key,value", [("transfer_dtype", "bfloat16"), ("prefetch", 4), ("tensor_parallel", 2)])
+# the tpu keys the train and validate CLIs read (dualvgr_tpu_torch/train.py)
+CLI_TPU_KEYS = {"feature_cache_gb", "prefetch", "transfer_dtype", "log_every", "profile_dir", "grad_accum",
+                   "autosave", "metrics_jsonl"}
+
+
+@pytest.mark.parametrize("key,value", [("mesh_axis", "model"), ("zero_opt", True), ("tensor_parallel", 2)])
 def test_unhonoured_tpu_keys_parse_but_are_refused(key, value):
-    """A tpu key the port does not honour yet parses, and is refused by
-    ``model_runtime_kwargs`` rather than silently ignored."""
+    """A tpu key the port does not honour yet (the multi-device ones)
+    parses, and is refused by ``model_runtime_kwargs`` rather than silently
+    ignored; the keys the CLIs read are not refused."""
     cfg = tconfig.default_config()
     assert key in tconfig.UNHONOURED_TPU_KEYS
     cfg.tpu[key] = value
     with pytest.raises(NotImplementedError, match=f"tpu.{key}"):
         tconfig.model_runtime_kwargs(cfg, "cpu")
-    assert set(tconfig.UNHONOURED_TPU_KEYS) == set(cfg.tpu) - {"compute_dtype", "use_pallas"}
+    assert set(tconfig.UNHONOURED_TPU_KEYS) == (
+        set(cfg.tpu) - {"compute_dtype", "use_pallas", "prng_impl"} - CLI_TPU_KEYS)
+
+
+@pytest.mark.parametrize("key,value", [("transfer_dtype", "bfloat16"), ("prefetch", 4), ("grad_accum", 2),
+                                       ("metrics_jsonl", "m.jsonl")])
+def test_cli_tpu_keys_are_not_refused(key, value):
+    cfg = tconfig.default_config()
+    cfg.tpu[key] = value
+    assert tconfig.model_runtime_kwargs(cfg, "cpu") == {"use_kernels": False, "compute_dtype": "float32"}
+
+
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg"])
+def test_a_jax_prng_impl_is_refused(impl):
+    cfg = tconfig.default_config()
+    cfg.tpu.prng_impl = impl
+    with pytest.raises(NotImplementedError, match="torch.Generator"):
+        tconfig.model_runtime_kwargs(cfg, "cpu")

@@ -1,9 +1,11 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * Importing every module of ``dualvgr_tpu_torch`` (the bf16 streaming and
-  projection modules and the port's probe included) and ``chip_smoke``
-  loads none of jax, flax, the JAX package ``dualvgr_tpu`` or
-  ``benchmarks``.
+  projection modules, the port's probe, the data layer, the CLIs,
+  validation and checkpoints included) and ``chip_smoke`` loads none of
+  jax, flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
+  ``preprocess``, ``h5py`` or ``ml_dtypes``, and runs no CLI's
+  ``main``.
 * The entry points default to ``device="cuda"`` and raise on a machine
   without CUDA instead of answering through the plain path.
 """
@@ -29,12 +31,18 @@ def test_port_imports_no_jax():
             importlib.import_module(m)
         import chip_smoke
         bad = sorted(k for k in sys.modules
-                     if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dualvgr_tpu", "benchmarks"))
+                     if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dualvgr_tpu", "benchmarks",
+                                            "preprocess", "h5py", "ml_dtypes"))
         print(len(mods), bad)
         assert not bad, bad
-        for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe"):
+        for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe", "data.vocab", "data.features",
+                  "data.loader", "data.check", "parallel.mesh", "train", "validate", "validate_lib",
+                  "utils.checkpoint", "utils.logging"):
             assert "dualvgr_tpu_torch." + m in mods, m
-        assert len(mods) >= 17, mods
+        assert len(mods) >= 30, mods
+        # importing the CLIs runs no main: nothing was trained or logged
+        import logging
+        assert not logging.getLogger().handlers, logging.getLogger().handlers
         """
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -15,7 +15,8 @@ gradients over T steps and a product over 4H). Outputs in bf16 (kernels 5
 and 6, kernel 1 with bf16 gates) may differ from the plain version by one
 bf16 rounding step of the reference's magnitude, where a sum taken in
 another order crosses a rounding boundary, plus the fp32 tolerance for
-values near zero.
+values near zero. The last tests hold ``prefetch_to_device`` (pinned
+batches copied on a side stream) to the loader's host batches, exactly.
 """
 
 import ctypes
@@ -551,3 +552,87 @@ def test_build_model_refuses_dims_the_kernels_cannot_take(rs, cuda):
     q = torch.from_numpy(rs.randint(1, 40, (b, t)).astype(np.int32)).to(cuda)
     out = model(_t(rs, cuda, b, 6, 4, 64), _t(rs, cuda, b, 6, 64), q, qlen)
     assert out.logits.shape == (b, 30) and torch.isfinite(out.logits).all()
+
+
+def _memory_loader(tmp_path, videos=40, questions=70, batch=8, shuffle=False, prefetch=2):
+    """A VideoQADataLoader on in-memory FeatureStores (no HDF5), its batches
+    pinned: a vocab, one question pickle, and features whose every row is
+    distinct. Returns (loader, appearance store, motion store)."""
+    import json
+    import pickle
+
+    from dualvgr_tpu_torch.data import FeatureStore, VideoQADataLoader
+
+    rs = np.random.RandomState(5)
+    ids = np.arange(100, 100 + videos)
+    app = FeatureStore.from_array(ids, rs.randn(videos, 4, 3, 256).astype(np.float32), "resnet_features")
+    mot = FeatureStore.from_array(ids, rs.randn(videos, 4, 256).astype(np.float32), "resnext_features")
+    vocab = {"question_token_to_idx": {"<NULL>": 0, "<UNK>": 1, **{f"w{i}": i for i in range(2, 20)}},
+             "answer_token_to_idx": {f"a{i}": i for i in range(6)}, "question_answer_token_to_idx": {}}
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    qlen = rs.randint(1, 7, questions)
+    obj = {"questions": rs.randint(2, 20, (questions, 6)) * (np.arange(6)[None] < qlen[:, None]),
+           "questions_len": qlen, "question_id": np.arange(questions), "video_ids": rs.choice(ids, questions),
+           "answers": rs.randint(0, 6, questions)}
+    with open(tmp_path / "q.pt", "wb") as f:
+        pickle.dump(obj, f)
+    loader = VideoQADataLoader(question_pt=str(tmp_path / "q.pt"), vocab_json=str(tmp_path / "vocab.json"),
+                               appearance_feat=app, motion_feat=mot, batch_size=batch, shuffle=shuffle,
+                               prefetch=prefetch, pin_memory=True)
+    return loader, app, mot
+
+
+def _device_items(loader):
+    for b in loader:
+        yield (b.appearance_feat, b.motion_feat, b.question, b.question_len, b.answer, b.valid, b.video_idx)
+
+
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_prefetch_to_device_yields_the_host_batches(cuda, tmp_path, size):
+    """An epoch through ``prefetch_to_device`` gives, on the card, exactly
+    the loader's host batches (pinned features, numpy fields)."""
+    from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+
+    loader, _, _ = _memory_loader(tmp_path)
+    host = []
+    for item in _device_items(loader):
+        assert item[0].is_pinned() and item[1].is_pinned()
+        host.append(tuple(torch.as_tensor(x).clone() for x in item))
+    got = list(prefetch_to_device(_device_items(loader), cuda, size))
+    assert len(got) == len(host) == len(loader)
+    for g, h in zip(got, host):
+        assert all(x.device.type == "cuda" for x in g)
+        assert all(x.dtype == y.dtype and torch.equal(x.cpu(), y) for x, y in zip(g, h))
+
+
+def test_prefetch_never_rewrites_a_pinned_batch_under_its_copy(cuda, tmp_path):
+    """Stress: a fast producer and a slow consumer (the compute stream kept
+    busy, the host sleeping) over several shuffled epochs with copies in
+    flight; every batch on the card equals its rows gathered afresh from
+    the store, so no pinned buffer was reused before its copy was done and
+    no device buffer before its consumer was."""
+    import sys
+    import time
+
+    from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+
+    loader, app, mot = _memory_loader(tmp_path, videos=64, questions=200, batch=16, shuffle=True, prefetch=4)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        n = 0
+        for _ in range(3):
+            for a, m, *_, vids in prefetch_to_device(_device_items(loader), cuda, 3):
+                torch.cuda._sleep(2_000_000)  # keep the compute stream busy past the next copies
+                time.sleep(0.002)
+                a_sum, m_sum = a.sum(dtype=torch.float64), m.sum(dtype=torch.float64)  # read on the compute stream
+                vids = vids.cpu().numpy()
+                want_a = app.gather(app.rows_for_video_ids(vids))
+                want_m = mot.gather(mot.rows_for_video_ids(vids))
+                assert torch.equal(a.cpu(), want_a) and torch.equal(m.cpu(), want_m)
+                assert a_sum.item() == want_a.to(cuda).sum(dtype=torch.float64).item()
+                assert m_sum.item() == want_m.to(cuda).sum(dtype=torch.float64).item()
+                n += 1
+        assert n == 3 * len(loader)
+    finally:
+        sys.setswitchinterval(interval)
