@@ -31,6 +31,18 @@ streaming path):
    build_predict_fn answers 64 concurrent requests at full width, fp32
    then bf16; this is the serving path, whose launches of kernels 1, 2
    (and 6 and the tanh pass in bf16) are counted;
+   serve breakdown pageable, serve breakdown pinned: one served batch of
+   32 split into host assembly, host-to-device copy, the forward with
+   softmax and top-k, and the fetch, with the step before the pinned
+   staging (fresh numpy arrays, a copy from pageable memory) and as the engine
+   runs it now (pinned staging tensors reused, copies that do not block);
+   export, export bf16: the serving program exported with torch.export
+   for cuda at max_batch 32 (kernels 1, 2 and, in bf16, 6 as custom ops),
+   saved as a .dvgr artifact and loaded back; its graph holds one op node
+   per launch and none of the plain versions; the 64 requests through a
+   BatchingEngine around the loaded program, against the live predict fn
+   (scores within 1e-6), launches per batch those of a forward; export
+   and load seconds, artifact size, p50/p99, QA/s;
 9. bilstm_train: the trainable recurrence's forward and backward kernels
    (kernels 3 and 4) against their plain versions at the three shapes of
    the flagship train step, with bidirectional torch.nn.LSTM (cuDNN) in
@@ -75,7 +87,16 @@ streaming path):
     imports;
 14. cli bf16: the validate CLI with compute and transfer dtype
     bfloat16 on the same checkpoint, its launches, its logits against
-    the fp32 kernel path's within the bf16 limits, and its rates.
+    the fp32 kernel path's within the bf16 limits, and its rates;
+15. http, http artifact: the HTTP front (``dualvgr_tpu_torch.serve``) on
+    the train CLI's checkpoint and the phase's in-memory stores, on
+    127.0.0.1: the test split's 300 questions as text from 64 threads of
+    a client process,
+    the answers against the validate CLI's (top-1 equal except near
+    ties), /healthz, /stats, a 404 and a 400; the checkpoint exported
+    for cuda and served from the artifact, against the checkpoint route;
+    the export phase's artifact over the same front, against its own
+    predict fn; p50/p99, QA/s, launches per batch those of a forward.
 
 Kernels 1, 3 and 4 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
 shape, their launch plan (cluster size, the clusters the card keeps
@@ -121,6 +142,9 @@ from dualvgr_tpu_torch.bench import proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
 from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
 from dualvgr_tpu_torch.data import FeatureStore
+from dualvgr_tpu_torch.data.questions import encode_tokens, tokenize_question
+from dualvgr_tpu_torch.data.vocab import load_vocab
+from dualvgr_tpu_torch.export import export_serving, graph_ops, load_artifact, model_from_checkpoint, save_artifact
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops import gat_kernel
@@ -138,6 +162,8 @@ from dualvgr_tpu_torch.ops.proj_kernel import (
     tanh_to_bf16_reference,
 )
 from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+from dualvgr_tpu_torch import serve as tserve
+from dualvgr_tpu_torch.serving import Request, ServingProgram
 from dualvgr_tpu_torch.train import model_kwargs_tosave
 from dualvgr_tpu_torch.train_lib import forward_backward
 from dualvgr_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -570,22 +596,23 @@ def profile_run(phase, fn, top=8):
         print(f"  {us:10.0f} us {us / busy_us:6.1%} x{count:<4d} {name[:90]}", flush=True)
 
 
-def phase_serve(model, tag="serve"):
-    """The main path: concurrent requests through the engine, in the
-    model's compute dtype; the launches of kernels 1, 2 and 6 counted."""
+def serve_requests():
+    """The serving phases' 64 requests at full width: features and questions
+    of 4-24 tokens from seed 1."""
     rng = np.random.RandomState(1)
     vd = FLAGSHIP["vision_dim"]
-    reqs = [
+    return [
         (rng.randn(CLIPS, FRAMES, vd).astype(np.float32), rng.randn(CLIPS, vd).astype(np.float32),
          rng.randint(1, FLAGSHIP["question_vocab_size"], (4 + i % (QLEN - 3),)).astype(np.int32))
         for i in range(SERVE_REQUESTS)
     ]
-    predict = build_predict_fn(model, TOP_K)
 
-    # the same requests straight through predict, in batches of the engine's
-    # size: the answers to hold the engine's against (and the warm-up)
+
+def direct_answers(predict, reqs):
+    """``reqs`` straight through ``predict`` in batches of the engine's size:
+    the answers to hold an engine's against (and a warm-up)."""
     direct = []
-    for s in range(0, SERVE_REQUESTS, SERVE_BATCH):
+    for s in range(0, len(reqs), SERVE_BATCH):
         chunk = reqs[s : s + SERVE_BATCH]
         q = np.zeros((len(chunk), QLEN), np.int32)
         for i, r in enumerate(chunk):
@@ -594,8 +621,16 @@ def phase_serve(model, tag="serve"):
                               np.array([len(r[2]) for r in chunk], np.int32))
         direct += list(zip(ids, scores))
     torch.cuda.synchronize()
+    return direct
 
-    results = [None] * SERVE_REQUESTS
+
+def serve_through_engine(tag, predict, reqs, direct, compute_dtype):
+    """``reqs`` from concurrent threads through a BatchingEngine around
+    ``predict``: every answer within 1e-6 of ``direct`` (top-1 ids equal
+    except where the top two scores tie), the launches of kernels 1, 2
+    and 6 per batch those of a forward. Returns (launches, stats, wall s)."""
+    vd = FLAGSHIP["vision_dim"]
+    results = [None] * len(reqs)
     errors = []
 
     def call(i):
@@ -608,7 +643,7 @@ def phase_serve(model, tag="serve"):
                         feature_shapes=((CLIPS, FRAMES, vd), (CLIPS, vd))) as eng:
         reset_counts()
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=call, args=(i,)) for i in range(SERVE_REQUESTS)]
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
         for t in threads:
             t.start()
         for t in threads:
@@ -617,22 +652,153 @@ def phase_serve(model, tag="serve"):
         wall = time.perf_counter() - t0
         launches = counts()
         stats = eng.stats()
-    check(not errors, f"serve errors: {errors[:3]}")
-    check(all(r is not None for r in results), "a request got no answer")
-    check(stats["requests"] == SERVE_REQUESTS, f"engine counted {stats['requests']} requests")
-    want = tuple(n * stats["batches"] for n in EVAL_LAUNCHES[model.compute_dtype])
+    check(not errors, f"{tag} errors: {errors[:3]}")
+    check(all(r is not None for r in results), f"{tag}: a request got no answer")
+    check(stats["requests"] == len(reqs), f"{tag}: engine counted {stats['requests']} requests")
+    want = tuple(n * stats["batches"] for n in EVAL_LAUNCHES[compute_dtype])
     check(launches == want, f"{tag} launched {launches} kernels over {stats['batches']} batches, want {want}")
     for i, ((got_ids, got_scores), (ids, scores)) in enumerate(zip(results, direct)):
-        check(got_ids.shape == (TOP_K,) and np.isfinite(got_scores).all(), f"request {i}: bad answer")
-        check(np.allclose(got_scores, scores, atol=1e-6), f"request {i}: scores differ from direct")
+        check(got_ids.shape == (TOP_K,) and np.isfinite(got_scores).all(), f"{tag} request {i}: bad answer")
+        check(np.allclose(got_scores, scores, atol=1e-6), f"{tag} request {i}: scores differ from direct")
         # the top-1 id may differ only where the top two scores tie
-        check(got_ids[0] == ids[0] or scores[0] - scores[1] <= 1e-6, f"request {i}: other top-1")
+        check(got_ids[0] == ids[0] or scores[0] - scores[1] <= 1e-6, f"{tag} request {i}: other top-1")
+    return launches, stats, wall
+
+
+def fmt_launches(launches):
+    return (f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
+            f"tanh_to_bf16:{launches[6]}")
+
+
+def phase_serve(model, tag="serve"):
+    """The main path: concurrent requests through the engine, in the
+    model's compute dtype; the launches of kernels 1, 2 and 6 counted."""
+    reqs = serve_requests()
+    predict = build_predict_fn(model, TOP_K)
+    direct = direct_answers(predict, reqs)
+    launches, stats, wall = serve_through_engine(tag, predict, reqs, direct, model.compute_dtype)
     say(tag, requests=stats["requests"], batches=stats["batches"],
         mean_batch=f"{stats['mean_batch']:.2f}", p50_ms=f"{stats['latency_ms_p50']:.2f}",
         p99_ms=f"{stats['latency_ms_p99']:.2f}", qa_per_s=f"{SERVE_REQUESTS / wall:.1f}",
-        launches=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
-                 f"tanh_to_bf16:{launches[6]}")
+        launches=fmt_launches(launches))
     return launches
+
+
+# the exported graph: one op node per launch of a forward, and none of the
+# plain versions' signatures (the graph cycle's LeakyReLU, the LSTM cell's chunk)
+EXPORT_OPS = {"float32": {"bilstm_recurrence": 3, "gat_cycle": 2},
+              "bfloat16": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_both": 1}}
+PLAIN_SIGNATURES = ("aten.leaky_relu.default", "aten.chunk.default")
+
+
+def phase_export(model, root, tag="export"):
+    """The serving program of ``model`` exported for cuda at max_batch 32,
+    saved, loaded back and its graph checked; the serving phase's 64
+    requests through a BatchingEngine around the loaded program, held
+    against the live ``build_predict_fn``. Returns (launches, path)."""
+    vd, dtype = FLAGSHIP["vision_dim"], model.compute_dtype
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload, meta = export_serving(model, max_batch=SERVE_BATCH, app_shape=(CLIPS, FRAMES, vd),
+                                   mot_shape=(CLIPS, vd), max_q_len=QLEN, top_k=TOP_K, platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    path = os.path.join(root, f"{tag.replace(' ', '_')}.dvgr")
+    save_artifact(path, payload, meta)
+    del payload
+    t0 = time.perf_counter()
+    predict, _ = load_artifact(path)
+    load_s = time.perf_counter() - t0
+    ops = graph_ops(predict.program)
+    want = {f"dualvgr_torch.{k}.default": n for k, n in EXPORT_OPS[dtype].items()}
+    kernel_ops = {k: n for k, n in ops.items() if k.startswith("dualvgr_torch.")}
+    check(kernel_ops == want, f"{tag}: the graph holds {kernel_ops}, want {want}")
+    check(not any(ops[k] for k in PLAIN_SIGNATURES), f"{tag}: the graph holds a plain version "
+                                                     f"({ {k: ops[k] for k in PLAIN_SIGNATURES} })")
+    reqs = serve_requests()
+    direct = direct_answers(build_predict_fn(model, TOP_K), reqs)
+    direct_answers(predict, reqs[:SERVE_BATCH])  # warm the loaded program
+    launches, stats, wall = serve_through_engine(tag, predict, reqs, direct, dtype)
+    say(tag, export_s=f"{export_s:.2f}", load_s=f"{load_s:.2f}", artifact_mb=f"{os.path.getsize(path) / 1e6:.1f}",
+        graph_ops=",".join(f"{k.split('.')[1]}:{n}" for k, n in sorted(kernel_ops.items())),
+        graph_nodes=sum(ops.values()), requests=stats["requests"], batches=stats["batches"],
+        p50_ms=f"{stats['latency_ms_p50']:.2f}", p99_ms=f"{stats['latency_ms_p99']:.2f}",
+        qa_per_s=f"{SERVE_REQUESTS / wall:.1f}", launches=fmt_launches(launches))
+    del predict
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def pageable_step_parts(batch, dev):
+    """The engine's step before the pinned staging:
+    the batch assembled into fresh numpy arrays, copied from pageable
+    memory. Returns (host arrays, a function that copies them)."""
+    b = SERVE_BATCH
+    app = np.zeros((b,) + batch[0].appearance.shape, np.float32)
+    mot = np.zeros((b,) + batch[0].motion.shape, np.float32)
+    q = np.zeros((b, QLEN), np.int32)
+    qlen = np.ones((b,), np.int32)
+    for i, req in enumerate(batch):
+        app[i], mot[i] = req.appearance, req.motion
+        q[i, : req.question.shape[0]] = req.question
+        qlen[i] = req.question.shape[0]
+    return (app, mot, q, qlen), lambda host: tuple(torch.from_numpy(a).to(dev) for a in host)
+
+
+def phase_serve_breakdown(model, reps=10):
+    """One served batch of 32 at full width split into its four parts, with
+    the step before the pinned staging (fresh numpy arrays, pageable copy)
+    and this engine's (pinned staging reused, copies that do not block the
+    host): host assembly, host-to-device copy (host clock to the copies'
+    end), the forward with softmax and top-k (CUDA events), the fetch of
+    the (32, 5) ids and scores (host clock); medians over ``reps`` steps
+    after one warm-up, and the whole step (host clock)."""
+    dev = next(model.parameters()).device
+    batch = [Request(*r) for r in serve_requests()[:SERVE_BATCH]]
+    program = ServingProgram(model, TOP_K).eval()
+    eng = BatchingEngine(lambda *a: None, device=dev, max_batch=SERVE_BATCH, max_q_len=QLEN)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def pinned():
+        host = eng._assemble(batch)
+        return host, eng._to_device
+
+    rows = {}
+    try:
+        for mode, assemble in (("pageable", lambda: pageable_step_parts(batch, dev)), ("pinned", pinned)):
+            parts = {k: [] for k in ("assemble_ms", "h2d_ms", "forward_ms", "fetch_ms", "step_ms")}
+            for rep in range(reps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                host, copy_fn = assemble()
+                t1 = time.perf_counter()
+                args = copy_fn(host)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                start.record()
+                with torch.no_grad():
+                    ids, scores = program(*args)
+                end.record()
+                end.synchronize()
+                t3 = time.perf_counter()
+                ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+                t4 = time.perf_counter()
+                if rep:
+                    for k, v in (("assemble_ms", t1 - t0), ("h2d_ms", t2 - t1), ("fetch_ms", t4 - t3),
+                                 ("step_ms", t4 - t0)):
+                        parts[k].append(v * 1e3)
+                    parts["forward_ms"].append(start.elapsed_time(end))
+            rows[mode] = {k: float(np.median(v)) for k, v in parts.items()}
+            check(ids.shape == (SERVE_BATCH, TOP_K) and np.isfinite(scores).all(), f"breakdown {mode}: bad answers")
+    finally:
+        eng.close()
+    nbytes = sum(a.nbytes for a in pageable_step_parts(batch, dev)[0])
+    for mode, r in rows.items():
+        say(f"serve breakdown {mode}", batch=SERVE_BATCH, batch_mb=f"{nbytes / 1e6:.1f}",
+            **{k: f"{v:.3f}" for k, v in r.items()},
+            h2d_gb_per_s=f"{nbytes / r['h2d_ms'] / 1e6:.2f}",
+            shares=",".join(f"{k[:-3]}:{r[k] / r['step_ms']:.3f}" for k in ("assemble_ms", "h2d_ms", "forward_ms",
+                                                                           "fetch_ms")))
+    return rows
 
 
 def cudnn_lstm(enc, x):
@@ -1425,6 +1591,181 @@ def phase_cli_bf16(raw, all_stores, accs, preds, first, model_ms):
     return launches
 
 
+# served answers against the validate CLI's: top-1 equal except where the
+# served top two log-probabilities lie within this of each other (a batch
+# of 32 and validate's 256 take other kernel plans: sums in another order)
+HTTP_TIE_LOG_MARGIN = 1e-3
+# two routes of the same program: the replies' scores are rounded to 6
+# decimals, so within one unit of the last place
+HTTP_ROUTE_ATOL = 1e-6
+HTTP_THREADS = 64
+
+
+def http_request(port, path, body=None):
+    """(status, JSON reply) of a GET, or of a POST of ``body`` (bytes)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST" if body else "GET",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+# the HTTP clients: a process of their own (so that they share no
+# interpreter lock with the server), HTTP_THREADS threads, stdlib only;
+# argv: port, threads; stdin: [[video id, question], ...]; stdout: the
+# [status, reply] of each, in order
+HTTP_CLIENT = """
+import json, sys, urllib.error, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+port, threads = int(sys.argv[1]), int(sys.argv[2])
+def post(vq):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/answer", method="POST",
+                                 data=json.dumps({"video_id": vq[0], "question": vq[1]}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+with ThreadPoolExecutor(threads) as pool:
+    json.dump(list(pool.map(post, json.load(sys.stdin))), sys.stdout)
+"""
+
+
+def http_serve(tag, engine, answer_fn, questions):
+    """``questions`` ((video id, text), ...) POSTed from HTTP_THREADS
+    threads of a client process to a server on 127.0.0.1 around
+    ``engine``, after a warm-up; every reply 200. Returns (replies,
+    launches, batches, stats, wall s)."""
+    tserve.warm_up(engine, 1)
+    srv = tserve.make_server("127.0.0.1", 0, engine, answer_fn)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    port = srv.server_address[1]
+    try:
+        before = engine.stats()["batches"]
+        reset_counts()
+        t0 = time.perf_counter()
+        client = subprocess.run([sys.executable, "-c", HTTP_CLIENT, str(port), str(HTTP_THREADS)],
+                                input=json.dumps(questions), capture_output=True, text=True, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(client.returncode == 0, f"{tag}: the client exited {client.returncode}: {client.stderr[-2000:]}")
+        replies = [tuple(r) for r in json.loads(client.stdout)]
+        launches = counts()
+        stats = engine.stats()
+        batches = stats["batches"] - before
+        bad = [r for r in replies if r[0] != 200]
+        check(not bad, f"{tag}: {len(bad)} replies not 200, e.g. {bad[:2]}")
+        want = tuple(n * batches for n in EVAL_LAUNCHES["float32"])
+        check(launches == want, f"{tag}: {launches} launches over {batches} batches, want {want}")
+        # the front's other answers
+        check(http_request(port, "/healthz") == (200, {"ok": True}), f"{tag}: /healthz")
+        code, served = http_request(port, "/stats")
+        check(code == 200 and served["requests"] == stats["requests"], f"{tag}: /stats {code} {served}")
+        code, _ = http_request(port, "/answer", json.dumps({"video_id": "1", "question": "what?"}).encode())
+        check(code == 404, f"{tag}: an unknown video gave {code}")
+        code, _ = http_request(port, "/answer", b"{not json")
+        check(code == 400, f"{tag}: a bad body gave {code}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=10)
+        engine.close()
+    return replies, launches, batches, stats, wall
+
+
+def same_route_answers(tag, replies, ref):
+    """Two routes of the same program: scores within HTTP_ROUTE_ATOL, top-1
+    equal except where the reference's top two scores tie."""
+    for (_, got), (_, want) in zip(replies, ref):
+        g = np.array([t["score"] for t in got["topk"]])
+        w = np.array([t["score"] for t in want["topk"]])
+        check(np.abs(g - w).max() <= HTTP_ROUTE_ATOL + 1e-12, f"{tag}: scores {g} against {w}")
+        check(got["answer"] == want["answer"] or w[0] - w[1] <= HTTP_ROUTE_ATOL, f"{tag}: other top-1")
+
+
+def phase_http(root, raw, stores, preds, export_path):
+    """The HTTP front on the train CLI's checkpoint and the phase's
+    in-memory stores: the test split's questions as text, POSTed from
+    concurrent threads; the answers against the validate CLI's; then the
+    same checkpoint exported for cuda and served from the artifact, and the
+    export phase's artifact served over the same front. Returns the
+    launches of all three routes."""
+    t_phase = time.perf_counter()
+    cfg = copy.deepcopy(raw)
+    cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+    paths = resolve_dataset_paths(cfg).dataset
+    vocab = load_vocab(paths.vocab_json)
+    with open(paths.test_question_pt, "rb") as f:
+        obj = pickle.load(f)
+    words = vocab["question_idx_to_token"]
+    qids = list(obj["question_id"])
+    questions = [(str(v), " ".join(words[int(w)] for w in q[:n]) + "?")
+                 for v, q, n in zip(obj["video_ids"], obj["questions"], obj["questions_len"])]
+
+    engine, answer_fn, _ = tserve.build_engine(cfg, 1, SERVE_BATCH, 5.0, TOP_K, max_q_len=QLEN,
+                                               feature_stores=stores)
+    replies, launches, batches, stats, wall = http_serve("http", engine, answer_fn, questions)
+    ties = 0
+    for qid, (_, out) in zip(qids, replies):
+        p = [t["score"] for t in out["topk"]]
+        tie = np.log(p[0]) - np.log(p[1]) <= HTTP_TIE_LOG_MARGIN
+        ties += tie
+        check(out["answer"] == preds[qid] or tie, f"http: question {qid} answered {out['answer']}, validate "
+                                                  f"{preds[qid]}")
+    agree = np.mean([out["answer"] == preds[qid] for qid, (_, out) in zip(qids, replies)])
+    say("http", seconds=f"{time.perf_counter() - t_phase:.1f}", questions=len(questions), batches=batches,
+        mean_batch=f"{len(questions) / batches:.2f}", threads=HTTP_THREADS,
+        agreement_with_validate=f"{agree:.4f}", near_ties=int(ties), p50_ms=f"{stats['latency_ms_p50']:.2f}",
+        p99_ms=f"{stats['latency_ms_p99']:.2f}", qa_per_s=f"{len(questions) / wall:.1f}",
+        launches=fmt_launches(launches))
+
+    # the same checkpoint through the export (as python -m dualvgr_tpu_torch.export does) and the artifact route
+    model, _ = model_from_checkpoint(cfg, 1)
+    vd = FLAGSHIP["vision_dim"]
+    t0 = time.perf_counter()
+    payload, meta = export_serving(model, max_batch=SERVE_BATCH, app_shape=(CLIPS, FRAMES, vd), mot_shape=(CLIPS, vd),
+                                   max_q_len=QLEN, top_k=TOP_K, platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    cli_path = os.path.join(root, "cli.dvgr")
+    save_artifact(cli_path, payload, meta)
+    del model, payload
+    engine, answer_fn, _ = tserve.build_engine_from_artifact(cfg, cli_path, 5.0, feature_stores=stores)
+    art_replies, art_launches, art_batches, art_stats, art_wall = http_serve("http artifact", engine, answer_fn,
+                                                                             questions)
+    same_route_answers("http artifact vs checkpoint", art_replies, replies)
+
+    # the export phase's artifact (the seed-0 flagship weights) over the same front, against its own predict fn
+    engine, answer_fn, _ = tserve.build_engine_from_artifact(cfg, export_path, 5.0, feature_stores=stores)
+    few = questions[:2 * SERVE_BATCH]
+    exp_replies, exp_launches, _, _, _ = http_serve("http export artifact", engine, answer_fn, few)
+    predict, _ = load_artifact(export_path)
+    q_ids = vocab["question_token_to_idx"]
+    reqs = [(stores[0].row(v).numpy(), stores[1].row(v).numpy(),
+             np.asarray(encode_tokens(tokenize_question(text), q_ids), np.int32)) for v, text in few]
+    direct = direct_answers(predict, reqs)
+    del predict
+    for (_, out), (ids, scores) in zip(exp_replies, direct):
+        got = np.array([t["score"] for t in out["topk"]])
+        check(np.abs(got - scores).max() <= HTTP_ROUTE_ATOL, f"http export artifact: scores {got} against {scores}")
+        check(out["answer"] == vocab["answer_idx_to_token"][int(ids[0])] or scores[0] - scores[1] <= HTTP_ROUTE_ATOL,
+              "http export artifact: other top-1")
+    torch.cuda.empty_cache()
+    total = tuple(a + b + c for a, b, c in zip(launches, art_launches, exp_launches))
+    say("http artifact", export_s=f"{export_s:.2f}", artifact_mb=f"{os.path.getsize(cli_path) / 1e6:.1f}",
+        batches=art_batches, p50_ms=f"{art_stats['latency_ms_p50']:.2f}",
+        p99_ms=f"{art_stats['latency_ms_p99']:.2f}", qa_per_s=f"{len(questions) / art_wall:.1f}",
+        launches=fmt_launches(art_launches), export_phase_artifact_questions=len(few),
+        export_phase_artifact_launches=fmt_launches(exp_launches))
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, cases, per, library, side_cases=(), peak=PEAK_FP32_FLOPS,
                  **extra):
     """One row of the kernels line: the sums over the cases of one step or
@@ -1467,6 +1808,12 @@ def main():
     model.compute_dtype = "bfloat16"
     serve_bf16_launches = phase_serve(model, tag="serve bf16")
     model.compute_dtype = "float32"
+    phase_serve_breakdown(model)
+    export_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
+    export_launches, export_path = phase_export(model, export_dir.name)
+    model.compute_dtype = "bfloat16"
+    export_bf16_launches, _ = phase_export(model, export_dir.name, tag="export bf16")
+    model.compute_dtype = "float32"
 
     batch = train_batch(torch.Generator(device="cuda").manual_seed(1))
     fwd_cases, bwd_cases = phase_bilstm_train(model, batch[0], batch[2], batch[3])
@@ -1482,7 +1829,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
         cli_bf16 = phase_cli_bf16(raw, stores, accs, preds, first, model_ms)
+        http_launches = phase_http(root, raw, stores["float32"], preds, export_path)
         del stores
+    export_dir.cleanup()
 
     # kernel 1 once at each of its three shapes per flagship forward, kernel
     # 2 once per stream; kernels 3 and 4 once at each of the three shapes
@@ -1498,18 +1847,24 @@ def main():
         return dict(launches_cli_train=cli_train[i], launches_cli_validate=cli_val[i],
                     launches_cli_bf16_validate=cli_bf16[i])
 
+    def deploy_launches(i):
+        """Kernel i's launches through the loaded artifacts (phases export,
+        export bf16) and the HTTP front (phase http, its three routes)."""
+        return dict(launches_export=export_launches[i], launches_export_bf16=export_bf16_launches[i],
+                    launches_http=http_launches[i])
+
     kernels = [
         kernel_entry("bilstm_recurrence", "dualvgr_tpu_torch/csrc/bilstm_recurrence.cu",
                      "dualvgr_tpu/ops/lstm_pallas.py:107", serve_launches[0], lstm_cases,
                      f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
                      "bf16-gate shapes", library=True, side_cases=lstm_bf16,
-                     launches_bf16=serve_bf16_launches[0], **cli_launches(0)),
+                     launches_bf16=serve_bf16_launches[0], **cli_launches(0), **deploy_launches(0)),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
                      "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
                      "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
                      f"forward too); *_b{SERVE_BATCH}: the same streams' first {SERVE_BATCH} videos (a served "
                      "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1],
-                     **cli_launches(1)),
+                     **cli_launches(1), **deploy_launches(1)),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "
@@ -1534,11 +1889,13 @@ def main():
                      "batch 256); R512 at batch 32; library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: "
                      "the form on bf16 x (the bf16 train step's); tanh_to_bf16: the tanh pass alone",
                      library=True, side_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
-                     launches_train_bf16=train_bf16_launches[5], **cli_launches(5), library_v1_ms=k6_cases[0]["library_v1_ms"],
+                     launches_train_bf16=train_bf16_launches[5], **cli_launches(5), **deploy_launches(5),
+                     library_v1_ms=k6_cases[0]["library_v1_ms"],
                      bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"],
                      tanh_to_bf16=dict(
                          source="dualvgr_tpu_torch/csrc/input_proj.cu", replaces="benchmarks/proj_probe.py:124",
-                         launches=serve_bf16_launches[6], **cli_launches(6), max_abs_err=tanh_cases[0]["err"],
+                         launches=serve_bf16_launches[6], **cli_launches(6), **deploy_launches(6),
+                         max_abs_err=tanh_cases[0]["err"],
                          **{k: tanh_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                          per="one call on the R = 4096 x; library: torch.tanh(x, out=bf16); R512 at batch 32",
                          shapes={c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}

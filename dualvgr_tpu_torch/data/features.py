@@ -109,6 +109,16 @@ class FeatureStore:
     def rows_for_video_ids(self, video_ids) -> np.ndarray:
         return np.asarray([self.id_to_index[str(int(v))] for v in video_ids], dtype=np.int64)
 
+    def row(self, video_id) -> torch.Tensor:
+        """One video's features: a view of the cache (no copy, and none of
+        torch's intra-op threads, which a server's thread per request would
+        start anew each time), or one read from the file. Raises KeyError
+        for an unknown id."""
+        idx = self.id_to_index[str(int(video_id))]
+        if self._cache is not None:
+            return self._cache[idx]
+        return self.gather(np.array([idx]))[0]
+
     def gather(self, rows, out: torch.Tensor | None = None) -> torch.Tensor:
         """The feature rows ``rows`` (duplicates allowed, any order) as a CPU
         tensor of the store's dtype, written into ``out`` when given."""

@@ -8,8 +8,11 @@ a (H, 2*hd) and its bias (H,); for AttentionSFGCN proj_w (D, D),
 proj_b (D,) and score_w (D, 1). It returns (out, common, spec) with
 out = h + SFGCN([common, spec]).
 
-On a CPU tensor the wrapper runs ``gat_cycle_reference``; on a CUDA tensor
-it launches ``csrc/gat_cycle.cu`` or raises. That source says what bounds
+The wrapper calls the torch custom op ``dualvgr_torch::gat_cycle``, which
+``torch.export`` keeps as one node, scores' strides and all. On a CPU
+tensor the op runs ``gat_cycle_reference``; on a CUDA tensor it launches
+``csrc/gat_cycle.cu`` or raises, and counts the launch in
+``gat_cycle.launches``. That source says what bounds
 the kernel on the H100 and what its design does about it: the four D x D
 products, fp32 FMAs on the CUDA cores, bound it by operations; a
 thread-block cluster takes several videos, each CTA owns whole heads (a
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm_kernel import _check, refuse_autograd
+from dualvgr_tpu_torch.ops.lstm_kernel import OPS_NAMESPACE, _check, refuse_autograd
 
 MAX_NODES = 20  # kMaxNodes in the source
 MAX_DIM = 768  # kMaxDim in the source
@@ -293,13 +296,36 @@ def _launch_fn():
 def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w):
     """One stream's cycle (see the module docstring). Returns (out, common, spec).
     Eval only: raises if grad mode is on and an input requires grad (the
-    JAX package gives the TPU kernel no backward either)."""
+    JAX package gives the TPU kernel no backward either). The work is the
+    custom op ``dualvgr_torch::gat_cycle``, which ``torch.export`` keeps as
+    one node of the graph."""
     args = (h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w)
     refuse_autograd("gat_cycle", *args)
-    if h.device.type == "cpu":
-        return gat_cycle_reference(*args)
-    if h.device.type != "cuda":
+    if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gat_cycle runs on CPU or CUDA, not {h.device}")
+    return _cycle_op(*args)
+
+
+gat_cycle.launches = 0
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::gat_cycle", mutates_args=(), device_types="cpu")
+def _cycle_op(h: torch.Tensor, scores: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor, ac: torch.Tensor,
+              ac_bias: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor, a_s: torch.Tensor,
+              as_bias: torch.Tensor, proj_w: torch.Tensor, proj_b: torch.Tensor,
+              score_w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version."""
+    return gat_cycle_reference(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w)
+
+
+@_cycle_op.register_fake
+def _(h, *_):
+    return tuple(torch.empty_like(h) for _ in range(3))
+
+
+@_cycle_op.register_kernel("cuda")
+def _(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w):
+    """The op on CUDA tensors: one launch of ``csrc/gat_cycle.cu``."""
     dev = h.device
     if h.dim() != 3:
         raise ValueError(f"h must be (B, N, D), got {tuple(h.shape)}")
@@ -342,6 +368,3 @@ def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj
         raise RuntimeError(f"gat_cycle launch failed: cudaError {err}")
     gat_cycle.launches += 1
     return out, common, spec
-
-
-gat_cycle.launches = 0

@@ -11,9 +11,12 @@ or bf16 (``compute_dtype: bfloat16``; ``lstm_pallas.py:71-72``): the
 recurrence runs in fp32 either way and ``final`` and ``outs`` come back in
 the gates' dtype (``lstm_pallas.py:155-158``); W_hh stays fp32.
 
-On a CPU tensor the wrapper runs ``bilstm_recurrence_reference``, the
-plain PyTorch loop; on a CUDA tensor it launches
-``csrc/bilstm_recurrence.cu`` or raises. What bounds the kernel on the H100
+The wrapper calls the torch custom op ``dualvgr_torch::bilstm_recurrence``,
+which ``torch.export`` keeps as one node, so an exported serving program
+carries the kernel (``dualvgr_tpu_torch/export.py``). On a CPU tensor the
+op runs ``bilstm_recurrence_reference``, the plain PyTorch loop; on a CUDA
+tensor it launches ``csrc/bilstm_recurrence.cu`` or raises, and counts the
+launch in ``bilstm_recurrence.launches``. What bounds the kernel on the H100
 and what its design does about it is written in ``csrc/bilstm_cluster.cuh``,
 which kernel 3 shares: each CTA of a thread-block cluster keeps its
 slice of W_hh in shared memory for the whole launch, persistent clusters
@@ -33,6 +36,8 @@ import torch
 from dualvgr_tpu_torch.ops import _build
 
 MAX_HIDDEN = 384  # kMaxHidden in csrc/bilstm_cluster.cuh
+# the namespace of the kernels' torch custom ops (``torch.ops.dualvgr_torch``)
+OPS_NAMESPACE = "dualvgr_torch"
 
 # The cluster kernel's build constants (csrc/bilstm_cluster.cuh), which the
 # plan mirrors: rows per tile (kRows), gate columns a CTA holds (kGateCols,
@@ -300,14 +305,39 @@ def bilstm_recurrence(
 
     Returns ``final`` (R, 2H), or ``(final, outs)`` with ``with_outputs``.
     Raises if grad mode is on and an input requires grad (``refuse_autograd``).
+    The work is the custom op ``dualvgr_torch::bilstm_recurrence``, so that
+    ``torch.export`` keeps the kernel as one node of the graph.
     """
     refuse_autograd("bilstm_recurrence", xproj_f, xproj_b_rev, w_hh_f, w_hh_b)
-    if xproj_f.device.type == "cpu":
-        return bilstm_recurrence_reference(
-            xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs
-        )
-    if xproj_f.device.type != "cuda":
+    if xproj_f.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bilstm_recurrence runs on CPU or CUDA, not {xproj_f.device}")
+    final, outs = _recurrence_op(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs)
+    return (final, outs) if with_outputs else final
+
+
+bilstm_recurrence.launches = 0
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::bilstm_recurrence", mutates_args=(), device_types="cpu")
+def _recurrence_op(xproj_f: torch.Tensor, xproj_b_rev: torch.Tensor, w_hh_f: torch.Tensor,
+                   w_hh_b: torch.Tensor, lengths: torch.Tensor | None,
+                   with_outputs: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version. ``outs`` is empty without
+    ``with_outputs`` (an op has one output signature)."""
+    res = bilstm_recurrence_reference(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs)
+    return res if with_outputs else (res, xproj_f.new_empty(0))
+
+
+@_recurrence_op.register_fake
+def _(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs):
+    t_total, r, g = xproj_f.shape
+    final = xproj_f.new_empty((r, g // 2))
+    return final, xproj_f.new_empty((r, t_total, g // 2) if with_outputs else (0,))
+
+
+@_recurrence_op.register_kernel("cuda")
+def _(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs):
+    """The op on CUDA tensors: one launch of ``csrc/bilstm_recurrence.cu``."""
     dev = xproj_f.device
     if xproj_f.dim() != 3:
         raise ValueError(f"xproj_f must be (T, R, 4H), got {tuple(xproj_f.shape)}")
@@ -327,7 +357,7 @@ def bilstm_recurrence(
         lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
         lens_ptr = lengths.data_ptr()
     final = torch.empty((r, 2 * hidden), device=dev, dtype=xproj_f.dtype)
-    outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=xproj_f.dtype) if with_outputs else None
+    outs = torch.empty((r, t_total, 2 * hidden) if with_outputs else (0,), device=dev, dtype=xproj_f.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib, fn = launch_fn("bilstm_recurrence.cu", "bilstm_recurrence", 7)
@@ -340,7 +370,4 @@ def bilstm_recurrence(
     if err != 0:
         raise RuntimeError(f"bilstm_recurrence launch failed: cudaError {err}")
     bilstm_recurrence.launches += 1
-    return (final, outs) if with_outputs else final
-
-
-bilstm_recurrence.launches = 0
+    return final, outs

@@ -26,7 +26,10 @@ JAX package (``models/encoders.py:102-103, 125-127``;
 its output before the bias, a second rounding. The wrappers round w_ih to
 bf16 once per call.
 
-On a CPU tensor each wrapper runs its ``*_reference``, the same function
+``input_proj_both``, which the eval path runs, calls the torch custom op
+``dualvgr_torch::input_proj_both`` (the tanh pass inside it), so that
+``torch.export`` keeps it as one node. On a CPU tensor each wrapper runs
+its ``*_reference``, the same function
 step by step in PyTorch (tanh rounded to bf16, rounded operands upcast, an
 fp32 product, the bias, one rounding); on a CUDA tensor it launches the
 kernel or raises. ``launches`` on each wrapper counts its own kernel's
@@ -44,7 +47,7 @@ import ctypes
 import torch
 
 from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm_kernel import _check, refuse_autograd
+from dualvgr_tpu_torch.ops.lstm_kernel import OPS_NAMESPACE, _check, refuse_autograd
 
 
 def tanh_to_bf16_reference(x):
@@ -170,12 +173,32 @@ def input_proj_both(x, w_f, b_f, w_b, b_b, *, fuse_tanh: bool = True):
     card), else bf16.
 
     Returns ``(xf, xb_rev)``, bf16 (T, R, 4H) each, ``xb_rev`` time-reversed.
+    The work is the custom op ``dualvgr_torch::input_proj_both``, the tanh
+    pass inside it, which ``torch.export`` keeps as one node of the graph.
     """
     refuse_autograd("input_proj_both", x, w_f, b_f, w_b, b_b)
-    if x.device.type == "cpu":
-        return input_proj_both_reference(x, w_f, b_f, w_b, b_b, fuse_tanh=fuse_tanh)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"input_proj_both runs on CPU or CUDA, not {x.device}")
+    return _both_op(x, w_f, b_f, w_b, b_b, fuse_tanh)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::input_proj_both", mutates_args=(), device_types="cpu")
+def _both_op(x: torch.Tensor, w_f: torch.Tensor, b_f: torch.Tensor, w_b: torch.Tensor, b_b: torch.Tensor,
+             fuse_tanh: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version."""
+    return input_proj_both_reference(x, w_f, b_f, w_b, b_b, fuse_tanh=fuse_tanh)
+
+
+@_both_op.register_fake
+def _(x, w_f, b_f, w_b, b_b, fuse_tanh):
+    r, t, _ = x.shape
+    return tuple(x.new_empty((t, r, w_f.shape[0]), dtype=torch.bfloat16) for _ in range(2))
+
+
+@_both_op.register_kernel("cuda")
+def _(x, w_f, b_f, w_b, b_b, fuse_tanh):
+    """The op on CUDA tensors: the tanh pass with ``fuse_tanh``, then one
+    launch of the product in ``csrc/input_proj.cu``."""
     xf, xb = _launch(x, (w_f, w_b), (b_f, b_b), (False, True), fuse_tanh)
     input_proj_both.launches += 1
     return xf, xb

@@ -4,17 +4,31 @@
 batcher (``dualvgr_tpu/serving.py``): callers block in :meth:`submit`; one
 worker thread waits at most ``max_wait_ms`` past the first queued request
 to fill up to ``max_batch``, pads the batch to ``max_batch``, runs
-``predict_fn`` once and fans the rows back out. Here the padded batch is
-copied to the engine's ``device`` as torch tensors before the call.
+``predict_fn`` once and fans the rows back out. Here the worker assembles
+the padded batch straight into host staging tensors that it reuses (pinned
+when the engine's device is CUDA), copies them to the engine's ``device``
+without blocking and runs the CUDA work with that device current (the
+current device is per thread). A batch's results are fetched before the
+next batch is assembled, and the copies' event is waited on first, so a
+staging tensor is never rewritten under a copy in flight.
 
-``build_predict_fn(model, top_k)`` is the serving program (the counterpart
-of ``dualvgr_tpu/export.py::build_predict_fn``): the eval forward, softmax
+``ReplicatedEngine`` is the counterpart of the JAX package's replicated
+engine: one ``BatchingEngine`` per replica, round-robin dispatch;
+``per_device_predict_fns`` gives it one predict fn per card, from a model
+(its weights copied to each card) or from an export artifact
+(``dualvgr_tpu_torch/export.py``) loaded on each card.
+
+``build_predict_fn(model, top_k)`` runs the serving program (the
+counterpart of ``dualvgr_tpu/export.py::build_predict_fn``), the module
+``ServingProgram`` that ``export.py`` exports: the eval forward, softmax
 and top-k run on the card and only the (B, k) ids and scores come back to
 the host.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import queue
 import threading
 import time
@@ -25,7 +39,8 @@ import torch
 
 from dualvgr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["BatchingEngine", "Request", "EngineStats", "build_predict_fn"]
+__all__ = ["BatchingEngine", "ReplicatedEngine", "Request", "EngineStats", "ServingProgram",
+           "build_predict_fn", "per_device_predict_fns"]
 
 
 def build_predict_fn(model, top_k: int, *, device: str | torch.device = "cuda"):
@@ -40,15 +55,65 @@ def build_predict_fn(model, top_k: int, *, device: str | torch.device = "cuda"):
     if where != {dev}:
         raise ValueError(f"model parameters are on {sorted(map(str, where))}, not {dev}")
 
+    program = ServingProgram(model, top_k)
+
     @torch.no_grad()
     def predict(app, mot, q, qlen):
         app, mot = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (app, mot))
         q, qlen = (torch.as_tensor(a, device=dev) for a in (q, qlen))
-        probs = torch.softmax(model(app, mot, q, qlen).logits, dim=-1)
-        top_p, top_i = torch.topk(probs, top_k, dim=-1)
+        top_i, top_p = program(app, mot, q, qlen)
         return top_i.cpu().numpy(), top_p.cpu().numpy()
 
     return predict
+
+
+class ServingProgram(torch.nn.Module):
+    """The serving program as a module: the eval forward, softmax and
+    top-k, ``(ids, scores)`` (B, top_k) each on the model's device; what
+    ``build_predict_fn`` runs and ``export.export_serving`` exports."""
+
+    def __init__(self, model, top_k: int):
+        super().__init__()
+        self.model = model
+        self.top_k = int(top_k)
+
+    def forward(self, app, mot, q, qlen):
+        probs = torch.softmax(self.model(app, mot, q, qlen).logits, dim=-1)
+        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
+        return top_i, top_p
+
+
+def per_device_predict_fns(model_or_artifact, top_k: int | None = None, devices=None) -> list:
+    """One predict fn per card, for :class:`ReplicatedEngine` (the
+    counterpart of the JAX package's ``export.per_device_predict_fns``).
+
+    ``model_or_artifact`` is a model (each card gets its own copy of the
+    weights, the card it lives on the model itself; ``top_k`` is then
+    needed) or the path of an export artifact (loaded on each card).
+    ``devices`` defaults to every card; raises if it names more cards than
+    ``torch.cuda.device_count()`` holds.
+    """
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(count)] if devices is None else list(devices)
+    devs = [torch.device(d) for d in devices]
+    if not devs or any(d.type != "cuda" for d in devs):
+        raise ValueError(f"per_device_predict_fns places replicas on CUDA devices, got {devices}")
+    if len(devs) > count or any(d.index is not None and d.index >= count for d in devs):
+        raise ValueError(f"{len(devs)} replicas on {devices}, but torch.cuda.device_count() is {count}")
+    if isinstance(model_or_artifact, str):
+        from dualvgr_tpu_torch.export import load_artifact
+
+        return [load_artifact(model_or_artifact, device=d)[0] for d in devs]
+    if top_k is None:
+        raise ValueError("per_device_predict_fns(model) needs top_k")
+    return [build_predict_fn(model_on(model_or_artifact, resolve_device(d)), top_k, device=d) for d in devs]
+
+
+def model_on(model, device: torch.device):
+    """``model`` if its weights are on ``device``, else a copy moved there."""
+    if {p.device for p in model.parameters()} == {device}:
+        return model
+    return copy.deepcopy(model).to(device)
 
 
 @dataclass
@@ -112,6 +177,9 @@ class BatchingEngine:
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.max_q_len = int(max_q_len)
         self._feature_shapes = feature_shapes  # ((app...), (mot...)) or None
+        self._staging = None  # host batch tensors, made at the first batch of their shapes
+        self._staged_rows = 0  # rows of the staging tensors the last batch wrote
+        self._copied = None  # CUDA event after the last batch's copies
         self._queue: queue.Queue = queue.Queue()
         self._stats = EngineStats()
         self._lock = threading.Lock()
@@ -179,6 +247,11 @@ class BatchingEngine:
         return batch
 
     def _run(self):
+        on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
+        with on_card:
+            self._serve()
+
+    def _serve(self):
         while not self._closed.is_set():
             batch = self._collect()
             if not batch:
@@ -205,18 +278,51 @@ class BatchingEngine:
 
     def _step(self, batch: list):
         n = len(batch)
-        b = self.max_batch
-        app = np.zeros((b,) + batch[0].appearance.shape, np.float32)
-        mot = np.zeros((b,) + batch[0].motion.shape, np.float32)
-        q = np.zeros((b, self.max_q_len), np.int32)
-        qlen = np.ones((b,), np.int32)  # padding rows: length 1 over token 0
+        host = self._assemble(batch)
+        args = self._to_device(host)
+        # copies: a predict fn's outputs may be views of the staging tensors
+        return tuple(np.array(_host(x)[:n]) for x in self._predict_fn(*args))
+
+    def _assemble(self, batch: list) -> tuple:
+        """The padded batch in the staging tensors (app, mot, q, qlen):
+        the requests' rows, then the rows the previous batch left beyond
+        them reset to padding (zero features, length 1 over token 0)."""
+        if self._copied is not None:
+            self._copied.synchronize()  # the last batch's copies have read the staging tensors
+        app_shape, mot_shape = batch[0].appearance.shape, batch[0].motion.shape
+        if self._staging is None or self._staging[0].shape[1:] != app_shape \
+                or self._staging[1].shape[1:] != mot_shape:
+            pin = self.device.type == "cuda"
+            b = self.max_batch
+            self._staging = (
+                torch.zeros((b, *app_shape), dtype=torch.float32, pin_memory=pin),
+                torch.zeros((b, *mot_shape), dtype=torch.float32, pin_memory=pin),
+                torch.zeros((b, self.max_q_len), dtype=torch.int32, pin_memory=pin),
+                torch.ones((b,), dtype=torch.int32, pin_memory=pin),
+            )
+            self._staged_rows = 0
+        app, mot, q, qlen = (t.numpy() for t in self._staging)  # views of the staging tensors
+        n = len(batch)
         for i, req in enumerate(batch):
-            app[i] = req.appearance
-            mot[i] = req.motion
-            q[i, : req.question.shape[0]] = req.question
-            qlen[i] = req.question.shape[0]
-        args = (torch.from_numpy(a).to(self.device) for a in (app, mot, q, qlen))
-        return tuple(_host(x)[:n] for x in self._predict_fn(*args))
+            length = req.question.shape[0]
+            app[i], mot[i] = req.appearance, req.motion
+            q[i, :length], q[i, length:] = req.question, 0
+            qlen[i] = length
+        if self._staged_rows > n:
+            stale = slice(n, self._staged_rows)
+            app[stale], mot[stale], q[stale], qlen[stale] = 0.0, 0.0, 0, 1
+        self._staged_rows = n
+        return self._staging
+
+    def _to_device(self, host: tuple) -> tuple:
+        """The staging tensors on the engine's device: copies from pinned
+        memory that do not block the host, their completion recorded."""
+        if self.device.type != "cuda":
+            return host
+        args = tuple(t.to(self.device, non_blocking=True) for t in host)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+        return args
 
     # ---------------------------------------------------------------- admin
     def stats(self) -> dict:
@@ -229,6 +335,87 @@ class BatchingEngine:
         self._closed.set()
         self._queue.put(None)
         self._worker.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class ReplicatedEngine:
+    """One :class:`BatchingEngine` per replica, round-robin dispatch (the
+    counterpart of the JAX package's ``serving.ReplicatedEngine``).
+
+    ``predict_fns`` is one fixed-shape predict fn per replica
+    (:func:`per_device_predict_fns`), ``devices`` the device of each
+    (default: ``engine_kwargs``' ``device`` for all). The model saturates
+    a card at small batches, so serving scales across cards by
+    replication: each card gets its own copy of the program and weights and
+    its own batcher, with no traffic between cards. The submit, stats and
+    close surface matches :class:`BatchingEngine`.
+    """
+
+    def __init__(self, predict_fns, *, devices=None, **engine_kwargs):
+        if not predict_fns:
+            raise ValueError("need at least one predict_fn")
+        name = engine_kwargs.pop("name", "dualvgr-serve")
+        device = engine_kwargs.pop("device", "cuda")
+        devices = [device] * len(predict_fns) if devices is None else list(devices)
+        if len(devices) != len(predict_fns):
+            raise ValueError(f"{len(predict_fns)} predict fns for {len(devices)} devices")
+        self._engines = []
+        try:
+            for i, (fn, dev) in enumerate(zip(predict_fns, devices)):
+                self._engines.append(BatchingEngine(fn, device=dev, name=f"{name}-r{i}", **engine_kwargs))
+        except BaseException:
+            self.close()
+            raise
+        self._next = 0
+        self._lock = threading.Lock()
+
+    # the engine attributes that serve.py's warm-up and handler read
+    @property
+    def max_batch(self):
+        return self._engines[0].max_batch
+
+    @property
+    def _feature_shapes(self):
+        return self._engines[0]._feature_shapes
+
+    @property
+    def replicas(self) -> int:
+        return len(self._engines)
+
+    def submit(self, appearance, motion, question, timeout=30.0):
+        with self._lock:
+            i = self._next
+            self._next = (i + 1) % len(self._engines)
+        return self._engines[i].submit(appearance, motion, question, timeout)
+
+    def stats(self) -> dict:
+        per = [e.stats() for e in self._engines]
+        lat = []
+        for e in self._engines:
+            with e._lock:
+                lat += e._stats.latencies_ms
+        lat.sort()
+        q = lambda p: lat[min(int(p * len(lat)), len(lat) - 1)] if lat else None
+        total_b = sum(s["batches"] for s in per)
+        requests = sum(s["requests"] for s in per)
+        return {
+            "replicas": len(per),
+            "requests": requests,
+            "batches": total_b,
+            "mean_batch": requests / total_b if total_b else None,
+            "latency_ms_p50": q(0.50),
+            "latency_ms_p99": q(0.99),
+            "per_replica": per,
+        }
+
+    def close(self, timeout: float = 10.0):
+        for e in self._engines:
+            e.close(timeout)
 
     def __enter__(self):
         return self

@@ -2,12 +2,15 @@
 
 * Importing every module of ``dualvgr_tpu_torch`` (the bf16 streaming and
   projection modules, the port's probe, the data layer, the CLIs,
-  validation and checkpoints included) and ``chip_smoke`` loads none of
-  jax, flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
-  ``preprocess``, ``h5py`` or ``ml_dtypes``, and runs no CLI's
+  validation and checkpoints, the export, the HTTP front, the tokenizer
+  and the checkpoint interchange included) and ``chip_smoke`` loads none
+  of jax, flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
+  ``preprocess``, ``nltk``, ``h5py`` or ``ml_dtypes``, and runs no CLI's
   ``main``.
 * The entry points default to ``device="cuda"`` and raise on a machine
-  without CUDA instead of answering through the plain path.
+  without CUDA instead of answering through the plain path; so do the
+  export, serve and port_reference CLIs without ``--platforms cpu`` /
+  ``--device cpu``.
 """
 
 import os
@@ -32,12 +35,13 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dualvgr_tpu", "benchmarks",
-                                            "preprocess", "h5py", "ml_dtypes"))
+                                            "preprocess", "nltk", "h5py", "ml_dtypes"))
         print(len(mods), bad)
         assert not bad, bad
         for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe", "data.vocab", "data.features",
                   "data.loader", "data.check", "parallel.mesh", "train", "validate", "validate_lib",
-                  "utils.checkpoint", "utils.logging"):
+                  "utils.checkpoint", "utils.logging", "export", "serve", "data.questions",
+                  "utils.port_reference"):
             assert "dualvgr_tpu_torch." + m in mods, m
         assert len(mods) >= 30, mods
         # importing the CLIs runs no main: nothing was trained or logged
@@ -78,3 +82,26 @@ def test_predict_fn_and_engine_refuse_cuda_without_it():
     # a model left on the CPU is no model for a CUDA predict fn either way
     with pytest.raises((RuntimeError, ValueError)):
         build_predict_fn(model, 2, device="cuda")
+
+
+def test_deployment_clis_default_to_cuda_and_raise_without_it(synth_dir, tmp_path):
+    _no_cuda()
+    from dualvgr_tpu_torch import ReplicatedEngine, export, serve
+    from dualvgr_tpu_torch.serving import per_device_predict_fns
+    from dualvgr_tpu_torch.utils import port_reference
+
+    cfg = synth_dir["config"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        export.main(["--cfg", cfg, "--out", str(tmp_path / "x.dvgr")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--cfg", cfg])
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_reference.main(["import", str(tmp_path / "ref.pt"), str(tmp_path / "ckpt")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_reference.main(["export", str(tmp_path / "ckpt"), str(tmp_path / "ref.pt")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        export.load_artifact(str(tmp_path / "x.dvgr"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ReplicatedEngine([lambda *a: a])
+    with pytest.raises(ValueError, match="device_count"):
+        per_device_predict_fns(str(tmp_path / "x.dvgr"), devices=["cuda:0"])

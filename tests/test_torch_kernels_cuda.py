@@ -636,3 +636,90 @@ def test_prefetch_never_rewrites_a_pinned_batch_under_its_copy(cuda, tmp_path):
         assert n == 3 * len(loader)
     finally:
         sys.setswitchinterval(interval)
+
+
+def test_custom_ops_on_the_card_match_their_plain_versions(rs, cuda):
+    """The three custom ops called through ``torch.ops.dualvgr_torch``, as a
+    loaded export calls them: each launches its kernel once and matches its
+    plain version; the graph cycle reads a stride-0 ``scores`` through its
+    strides (the tolerances of the wrapper tests above)."""
+    ops = torch.ops.dualvgr_torch
+    r, t, h = 37, 6, 64
+    xf, xb = _t(rs, cuda, t, r, 4 * h), _t(rs, cuda, t, r, 4 * h)
+    wf, wb = _t(rs, cuda, h, 4 * h, scale=0.1), _t(rs, cuda, h, 4 * h, scale=0.1)
+    lens = torch.from_numpy(rs.randint(1, t + 1, (r,)).astype(np.int32)).to(cuda)
+    n0 = lstm_kernel.bilstm_recurrence.launches
+    final, outs = ops.bilstm_recurrence(xf, xb, wf, wb, lens, True)
+    final_only, empty = ops.bilstm_recurrence(xf, xb, wf, wb, None, False)
+    torch.cuda.synchronize()
+    assert lstm_kernel.bilstm_recurrence.launches == n0 + 2 and empty.numel() == 0
+    want_final, want_outs = lstm_kernel.bilstm_recurrence_reference(xf, xb, wf, wb, lens, with_outputs=True)
+    assert (final - want_final).abs().max().item() <= 1e-4 and (outs - want_outs).abs().max().item() <= 1e-4
+    assert (final_only - lstm_kernel.bilstm_recurrence_reference(xf, xb, wf, wb)).abs().max().item() <= 1e-4
+
+    hh, scores, args = _gat_inputs(rs, cuda, 32, 16, 768, 4, True)
+    assert scores.stride()[-1] == 0
+    n0 = gat_kernel.gat_cycle.launches
+    got = ops.gat_cycle(hh, scores, *args)
+    torch.cuda.synchronize()
+    assert gat_kernel.gat_cycle.launches == n0 + 1
+    for a, want in zip(got, gat_kernel.gat_cycle_reference(hh, scores, *args)):
+        assert (a - want).abs().max().item() <= 1e-3 * max(1.0, want.abs().max().item())
+
+    x = _t(rs, cuda, 64, 16, 2048)
+    w_f, w_b = _t(rs, cuda, 1536, 2048, scale=0.02), _t(rs, cuda, 1536, 2048, scale=0.02)
+    b_f, b_b = _t(rs, cuda, 1536), _t(rs, cuda, 1536)
+    n0 = (proj_kernel.input_proj_both.launches, proj_kernel.tanh_to_bf16.launches)
+    got = ops.input_proj_both(x, w_f, b_f, w_b, b_b, True)
+    torch.cuda.synchronize()
+    assert (proj_kernel.input_proj_both.launches, proj_kernel.tanh_to_bf16.launches) == (n0[0] + 1, n0[1] + 1)
+    share = max(2e-3, 4 / (16 * 64 * 1536))
+    for a, want, name in zip(got, proj_kernel.input_proj_both_reference(x, w_f, b_f, w_b, b_b), ("xf", "xb")):
+        _close_bf16(a, want, 1e-5, f"custom op kernel 6 {name}", share)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_artifact_launches_the_kernels(rs, cuda, tmp_path, compute_dtype):
+    """An artifact exported for cuda and loaded back runs kernels 1 and 2
+    (and 6 with its tanh pass in bf16) at the eval forward's counts per
+    call, and answers as the live predict fn does (ids equal, scores within
+    1e-6); through a one-replica ReplicatedEngine on cuda:0 too."""
+    from dualvgr_tpu_torch import ReplicatedEngine, build_predict_fn
+    from dualvgr_tpu_torch import export as texport
+    from dualvgr_tpu_torch.serving import per_device_predict_fns
+
+    model = build_model(device=cuda, vision_dim=64, module_dim=64, word_dim=16, question_vocab_size=40,
+                        num_answers=30, num_of_nodes=6, graph_layers=1, unit_layers=1, compute_dtype=compute_dtype)
+    b, t, k = 8, 9, 5
+    payload, meta = texport.export_serving(model, max_batch=b, app_shape=(6, 4, 64), mot_shape=(6, 64),
+                                           max_q_len=t, top_k=k, platforms=("cuda",))
+    path = str(tmp_path / "card.dvgr")
+    texport.save_artifact(path, payload, meta)
+    ops = texport.graph_ops(texport.load_artifact(path, cuda)[0].program)
+    assert ops["dualvgr_torch.bilstm_recurrence.default"] == 3 and ops["dualvgr_torch.gat_cycle.default"] == 2
+    assert ops["dualvgr_torch.input_proj_both.default"] == (compute_dtype == "bfloat16")
+    predict, _ = texport.load_artifact(path, device=cuda)
+    app, mot = rs.randn(b, 6, 4, 64).astype(np.float32), rs.randn(b, 6, 64).astype(np.float32)
+    qlen = rs.randint(1, t + 1, (b,)).astype(np.int32)
+    q = rs.randint(1, 40, (b, t)).astype(np.int32) * (np.arange(t)[None] < qlen[:, None])
+    kernels = (lstm_kernel.bilstm_recurrence, gat_kernel.gat_cycle, proj_kernel.input_proj_both,
+               proj_kernel.tanh_to_bf16)
+    n0 = [f.launches for f in kernels]
+    ids, scores = predict(app, mot, q, qlen)
+    bf16 = int(compute_dtype == "bfloat16")
+    assert [f.launches - n for f, n in zip(kernels, n0)] == [3, 2, bf16, bf16]
+    live_ids, live_scores = build_predict_fn(model, k, device=cuda)(app, mot, q, qlen)
+    np.testing.assert_array_equal(ids, live_ids)
+    np.testing.assert_allclose(scores, live_scores, rtol=0, atol=1e-6)
+
+    for source in (path, model):  # replicas from the artifact and from the model's weights
+        fns = per_device_predict_fns(source, k, devices=["cuda:0"])
+        with ReplicatedEngine(fns, devices=["cuda:0"], max_batch=b, max_q_len=t,
+                              feature_shapes=((6, 4, 64), (6, 64))) as eng:
+            out = [eng.submit(app[i], mot[i], q[i, : qlen[i]]) for i in range(3)]
+            stats = eng.stats()
+        assert stats["replicas"] == 1 and stats["requests"] == 3
+        for i, (got_ids, got_scores) in enumerate(out):
+            # alone in a padded batch, the row's scores are those of the full batch
+            np.testing.assert_array_equal(got_ids, ids[i])
+            np.testing.assert_allclose(got_scores, scores[i], rtol=0, atol=1e-6)
