@@ -19,7 +19,8 @@ streaming path):
    clusters the card keeps resident and the waves they make, the K split,
    shared memory per CTA checked against the library's own count);
 5. eval: the eval forward at the MSRVTT-QA flagship width, batch 256,
-   kernel path against plain path, launch counts per forward, QA/s;
+   kernel path against plain path, launch counts per forward, QA/s, the
+   analytic GFLOP per QA (``utils/flops.py``) and the TFLOP/s it gives;
 6. bilstm *_bf16: kernel 1 with bf16 gates at the three shapes of the bf16
    forward and kernels 3 and 4 with bf16 gates at the appearance shape of
    the bf16 train step, against their plain versions;
@@ -27,6 +28,11 @@ streaming path):
    forward (kernel 6 once on fp32 x, so the tanh pass once, kernel 1 three
    times with bf16 gates, kernel 2 twice, in fp32), ms and QA/s, logits
    against the fp32 kernel path;
+7a. gcn, gcn bf16: the same with graph_module GCN (the config's
+   default; PunishGCN banks, seed 0): the fp32 forward against its plain
+   path, kernel 1 three times a forward and kernel 2 never (checked), ms,
+   QA/s, GFLOP per QA and TFLOP/s; the bf16 forward against the fp32 GCN
+   forward within the bf16 limits, kernel 6 and its tanh pass once;
 8. serve, serve bf16: a BatchingEngine(max_batch=32) around
    build_predict_fn answers 64 concurrent requests at full width, fp32
    then bf16; this is the serving path, whose launches of kernels 1, 2
@@ -57,6 +63,14 @@ streaming path):
 11. train bf16: the same in bf16, the agreement against the fp32 kernel
     path from the same weights; launches per step: kernel 6 once (no
     tanh), kernels 3 and 4 three times each;
+11a. gcn train: phase train on the GCN model (kernels 3 and 4 three times
+    a step, the agreement after 2 warm-up steps);
+11b. batch_gats: the GAT flagship with the four banks of a graph layer
+    stacked (``batch_gats``) against the per-module path from the same
+    weights after 2 warm-up steps, dropout off: one train step's loss
+    (1e-4 relative) and every gradient (1e-3 of its module's largest), the
+    plain eval forward (the eval limits), fwd+bwd and plain eval ms of both;
+    the kernel eval of the stacked model still launches kernel 2 twice;
 12. proj: the tanh pass (bit for bit against its plain version; ms,
     plain ms, one ``torch.tanh(x, out=bf16)`` call as the library yardstick,
     the bytes bound) and kernel 5 (both time orders) and kernel 6 (on fp32
@@ -96,7 +110,18 @@ streaming path):
     ties), /healthz, /stats, a 404 and a 400; the checkpoint exported
     for cuda and served from the artifact, against the checkpoint route;
     the export phase's artifact over the same front, against its own
-    predict fn; p50/p99, QA/s, launches per batch those of a forward.
+    predict fn; p50/p99, QA/s, launches per batch those of a forward;
+16. gcn cli: phase cli's dataset under a config without ``graph_module``
+    (so GCN): the train CLI for 1 epoch and the validate CLI (launches
+    checked: no kernel 2), ``graph_module: GCN`` in model_kwargs.json; the
+    checkpoint exported for cuda (three ``bilstm_recurrence`` nodes, no
+    ``gat_cycle``) and phase serve's 64 requests through the loaded artifact
+    against the live program (scores within 1e-6, top-1 equal except on
+    ties);
+17. zoo: every class of the zoos (decoder and question-encoder variants,
+    graph, attention and model-utils zoos, fusions) once on CUDA tensors at
+    a small width against the same module on the CPU, within 1e-5 of the
+    largest output, no CPU tensor made on the way (``bench/zoo_check.py``).
 
 Kernels 1, 3 and 4 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
 shape, their launch plan (cluster size, the clusters the card keeps
@@ -107,7 +132,9 @@ redesign as PERF.md records it (not measured by this run); kernel 4 also
 its registers and spills as ptxas reported them; at the appearance shape,
 the SM clock, power draw and power limit that ``nvidia-smi`` reads while
 kernel 1 or 3 runs back to back.
-Then one JSON line with the kernel table and, last, the device line. Any
+Then one JSON line with the kernel table (with each row's launches in
+the GCN phases, ``launches_gcn*``, and kernel 2's in the stacked model's
+kernel eval, ``launches_batch_gats_eval``) and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
 port's own seeded init. TF32 is switched off for matmuls and for cuDNN, so
 the fp32 paths, the plain versions and the yardsticks are fp32.
@@ -140,6 +167,8 @@ from dualvgr_tpu_torch import train as ttrain
 from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch.bench import proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
+from dualvgr_tpu_torch.bench.zoo_check import TOL as TOL_ZOO
+from dualvgr_tpu_torch.bench.zoo_check import check_zoo
 from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
 from dualvgr_tpu_torch.data import FeatureStore
 from dualvgr_tpu_torch.data.questions import encode_tokens, tokenize_question
@@ -166,7 +195,8 @@ from dualvgr_tpu_torch import serve as tserve
 from dualvgr_tpu_torch.serving import Request, ServingProgram
 from dualvgr_tpu_torch.train import model_kwargs_tosave
 from dualvgr_tpu_torch.train_lib import forward_backward
-from dualvgr_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from dualvgr_tpu_torch.utils.checkpoint import load_model_kwargs, restore_checkpoint, save_checkpoint
+from dualvgr_tpu_torch.utils.flops import dualvgr_forward_flops
 
 FLAGSHIP = dict(
     vision_dim=2048, module_dim=768, word_dim=300, question_vocab_size=8000,
@@ -516,8 +546,9 @@ def phase_gat(model, app, mot, q, qlen):
 KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one, input_proj_both,
            tanh_to_bf16)
 # launches per fp32 forward and per bf16 forward (kernels 1-6, then the
-# tanh pass, which kernel 6 runs on fp32 x)
+# tanh pass, which kernel 6 runs on fp32 x); a GCN model never runs kernel 2
 EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1)}
+GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0), "bfloat16": (3, 0, 0, 0, 0, 1, 1)}
 # launches per train step: kernel 6 (on bf16 x, no tanh pass) once in bf16
 TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0), "bfloat16": (0, 0, 3, 3, 0, 1, 0)}
 
@@ -532,14 +563,28 @@ def counts():
     return tuple(k.launches for k in KERNELS)
 
 
+def flops_per_qa(model):
+    """The analytic matmul FLOPs of one flagship forward per QA pair
+    (``utils/flops.py``; graph layers counted as PunishGAT's)."""
+    vu = model.visual_input_unit
+    return dualvgr_forward_flops(
+        vision_dim=FLAGSHIP["vision_dim"], module_dim=FLAGSHIP["module_dim"], word_dim=FLAGSHIP["word_dim"],
+        num_answers=FLAGSHIP["num_answers"], num_of_nodes=CLIPS, frames_per_clip=FRAMES, q_len=QLEN,
+        unit_layers=vu.unit_layers, graph_layers=vu.graph_layers,
+    )
+
+
 @torch.no_grad()
-def phase_eval(model, app, mot, q, qlen):
+def phase_eval(model, app, mot, q, qlen, tag="eval", want=EVAL_LAUNCHES["float32"]):
+    """The fp32 forward, kernel path against plain path; ``want`` the
+    launches of one forward. Returns (ms, logits, launches)."""
     model.use_kernels = True
     reset_counts()
     out = model(app, mot, q, qlen)
     torch.cuda.synchronize()
-    n_lstm, n_gat = counts()[:2]
-    check(counts() == EVAL_LAUNCHES["float32"], f"one forward launched {counts()} kernels, want (3, 2, 0, ...)")
+    launches = counts()
+    n_lstm, n_gat = launches[:2]
+    check(launches == want, f"one {tag} forward launched {launches} kernels, want {want}")
     model.use_kernels = False
     ref = model(app, mot, q, qlen)
     torch.cuda.synchronize()
@@ -561,13 +606,15 @@ def phase_eval(model, app, mot, q, qlen):
     plain_ms = time_ms(lambda: model(app, mot, q, qlen), 3)
     model.use_kernels = True
     ms = time_ms(lambda: model(app, mot, q, qlen), 5)
-    say("eval", batch=BATCH, logits_max_abs_err=f"{err:.3e}", max_abs_logit=f"{scale:.3e}",
-        argmax_agreement=f"{agree:.4f}", aux_max_abs_err=f"{max(aux.values()):.3e}",
+    flops = flops_per_qa(model)
+    say(tag, graph_module=model.visual_input_unit.graph_module, batch=BATCH, logits_max_abs_err=f"{err:.3e}",
+        max_abs_logit=f"{scale:.3e}", argmax_agreement=f"{agree:.4f}", aux_max_abs_err=f"{max(aux.values()):.3e}",
         launches_per_forward=f"bilstm_recurrence:{n_lstm},gat_cycle:{n_gat}",
         forward_ms=f"{ms:.3f}", qa_per_s=f"{BATCH / ms * 1e3:.1f}",
-        plain_forward_ms=f"{plain_ms:.3f}", plain_qa_per_s=f"{BATCH / plain_ms * 1e3:.1f}")
-    profile_run("profile", lambda: model(app, mot, q, qlen))
-    return ms, logits
+        plain_forward_ms=f"{plain_ms:.3f}", plain_qa_per_s=f"{BATCH / plain_ms * 1e3:.1f}",
+        gflop_per_qa=f"{flops / 1e9:.4f}", tflop_per_s=f"{flops * BATCH / ms / 1e9:.2f}")
+    profile_run("profile" if tag == "eval" else f"{tag} profile", lambda: model(app, mot, q, qlen))
+    return ms, logits, launches
 
 
 def profile_run(phase, fn, top=8):
@@ -624,11 +671,12 @@ def direct_answers(predict, reqs):
     return direct
 
 
-def serve_through_engine(tag, predict, reqs, direct, compute_dtype):
+def serve_through_engine(tag, predict, reqs, direct, compute_dtype, per_batch=None):
     """``reqs`` from concurrent threads through a BatchingEngine around
     ``predict``: every answer within 1e-6 of ``direct`` (top-1 ids equal
     except where the top two scores tie), the launches of kernels 1, 2
-    and 6 per batch those of a forward. Returns (launches, stats, wall s)."""
+    and 6 per batch ``per_batch`` (by default those of a GAT forward in
+    ``compute_dtype``). Returns (launches, stats, wall s)."""
     vd = FLAGSHIP["vision_dim"]
     results = [None] * len(reqs)
     errors = []
@@ -655,7 +703,7 @@ def serve_through_engine(tag, predict, reqs, direct, compute_dtype):
     check(not errors, f"{tag} errors: {errors[:3]}")
     check(all(r is not None for r in results), f"{tag}: a request got no answer")
     check(stats["requests"] == len(reqs), f"{tag}: engine counted {stats['requests']} requests")
-    want = tuple(n * stats["batches"] for n in EVAL_LAUNCHES[compute_dtype])
+    want = tuple(n * stats["batches"] for n in (per_batch or EVAL_LAUNCHES[compute_dtype]))
     check(launches == want, f"{tag} launched {launches} kernels over {stats['batches']} batches, want {want}")
     for i, ((got_ids, got_scores), (ids, scores)) in enumerate(zip(results, direct)):
         check(got_ids.shape == (TOP_K,) and np.isfinite(got_scores).all(), f"{tag} request {i}: bad answer")
@@ -955,7 +1003,7 @@ def module_grad_norms(model):
             for name, mod in model.named_children()}
 
 
-def phase_train(batch, compute_dtype="float32"):
+def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
     """The flagship train step in ``compute_dtype``: warm-up steps, then the
     agreement (fp32: kernel path against plain path; bf16: the bf16 kernel
     path against the fp32 kernel path, from the same weights), then timed
@@ -968,10 +1016,10 @@ def phase_train(batch, compute_dtype="float32"):
     1e12, in any implementation; two updates move the biases off zero.
     """
     bf16 = compute_dtype == "bfloat16"
-    tag = "train bf16" if bf16 else "train"
+    tag = ("gcn " if graph_module == "GCN" else "") + ("train bf16" if bf16 else "train")
     tol_loss, tol_gnorm = (TOL_BF16_TRAIN_LOSS, TOL_BF16_TRAIN_GNORM) if bf16 else (TOL_TRAIN_LOSS, TOL_TRAIN_GNORM)
     lr = cfg_from_file(TRAIN_CFG).train.lr
-    model = build_model(seed=0, compute_dtype=compute_dtype, **FLAGSHIP)
+    model = build_model(seed=0, compute_dtype=compute_dtype, graph_module=graph_module, **FLAGSHIP)
     state = create_train_state(model, make_optimizer(lr, steps_per_epoch=100), seed=0)
     drops = [m for m in model.modules() if isinstance(m, Dropout)]
     rates = [m.p for m in drops]
@@ -1188,16 +1236,16 @@ def phase_bilstm_bf16(model, app, q, qlen, gen):
 
 
 @torch.no_grad()
-def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits):
+def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits, tag="eval bf16", want=EVAL_LAUNCHES["bfloat16"]):
     """The flagship forward in bf16, kernel routing, against the fp32 kernel
-    path's logits (``fp32_logits``, from the same weights and inputs)."""
+    path's logits (``fp32_logits``, from the same weights and inputs);
+    ``want`` the launches of one forward. Returns (ms, launches)."""
     model.use_kernels, model.compute_dtype = True, "bfloat16"
     reset_counts()
     out = model(app, mot, q, qlen)
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == EVAL_LAUNCHES["bfloat16"],
-          f"one bf16 forward launched {launches} kernels, want {EVAL_LAUNCHES['bfloat16']}")
+    check(launches == want, f"one {tag} forward launched {launches} kernels, want {want}")
     logits = out.logits
     check(logits.dtype == torch.float32 and tuple(logits.shape) == (BATCH, FLAGSHIP["num_answers"]),
           f"bf16 logits {logits.dtype} {tuple(logits.shape)}")
@@ -1213,14 +1261,14 @@ def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits):
     check(err <= TOL_BF16_LOGITS * scale, f"bf16 logits max abs err {err:.3e} > {TOL_BF16_LOGITS} * {scale:.3e}")
     check(unexplained == 0, f"{unexplained} argmax flips on rows whose fp32 top-2 margin exceeds 2 x {err:.3e}")
     ms = time_ms(lambda: model(app, mot, q, qlen), 5)
-    say("eval bf16", batch=BATCH, logits_max_abs_err=f"{err:.3e}", rel_to_max_logit=f"{err / scale:.3e}",
+    say(tag, batch=BATCH, logits_max_abs_err=f"{err:.3e}", rel_to_max_logit=f"{err / scale:.3e}",
         tol=f"{TOL_BF16_LOGITS}*max|logit|", max_abs_logit=f"{scale:.3e}", argmax_agreement=f"{agree:.4f}",
         flips=int(flips.sum().item()),
         launches_per_forward=f"input_proj_both:{launches[5]},tanh_to_bf16:{launches[6]},"
                              f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}",
         forward_ms=f"{ms:.3f}", qa_per_s=f"{BATCH / ms * 1e3:.1f}")
-    profile_run("eval bf16 profile", lambda: model(app, mot, q, qlen))
-    return ms
+    profile_run(f"{tag} profile", lambda: model(app, mot, q, qlen))
+    return ms, launches
 
 
 def train_batch(gen):
@@ -1766,6 +1814,192 @@ def phase_http(root, raw, stores, preds, export_path):
     return total
 
 
+# --- the GCN graph module (graph_module: GCN, the config's default) and
+# the stacked-bank GAT path ---
+
+
+@torch.no_grad()
+def phase_gcn(app, mot, q, qlen):
+    """Phases ``gcn`` and ``gcn bf16``: the GCN DualVGR at the flagship
+    width, seed 0; the fp32 forward, kernel path against plain path, then
+    the bf16 forward against it. Returns ({tag: ms}, {tag: launches of one
+    forward})."""
+    model = build_model(seed=0, graph_module="GCN", **FLAGSHIP)
+    check(type(model.visual_input_unit.acGCN[0]).__name__ == "PunishGCN", "the GCN model holds no PunishGCN banks")
+    ms, logits, launches = phase_eval(model, app, mot, q, qlen, tag="gcn", want=GCN_EVAL_LAUNCHES["float32"])
+    ms16, launches16 = phase_eval_bf16(model, app, mot, q, qlen, logits, tag="gcn bf16",
+                                       want=GCN_EVAL_LAUNCHES["bfloat16"])
+    del model, logits
+    torch.cuda.empty_cache()
+    return {"gcn": ms, "gcn bf16": ms16}, {"gcn": launches, "gcn bf16": launches16}
+
+
+def grad_errors(grads, ref):
+    """Each parameter's max |grad - ref| over the largest |ref| of its
+    top-level module: a softmax bias's gradient is the residue of a sum
+    that cancels, so it is not held relative to itself."""
+    scale = {}
+    for k, g in ref.items():
+        top = k.split(".")[0]
+        scale[top] = max(scale.get(top, 1e-12), g.abs().max().item())
+    return {k: (grads[k] - g).abs().max().item() / scale[k.split(".")[0]] for k, g in ref.items()}
+
+
+def phase_batch_gats(batch):
+    """Phase ``batch_gats``: the GAT flagship with ``batch_gats`` (the four
+    banks of a graph layer as one stacked computation) against the
+    per-module path, from the same weights after 2 warm-up steps, dropout
+    off: one train step's loss (1e-4 relative) and every gradient (1e-3 of
+    its module's largest); the plain eval forward (the eval limits); and
+    the kernel eval of the stacked model, which still launches kernel 2
+    twice. Returns the kernel eval's launches."""
+    lr = cfg_from_file(TRAIN_CFG).train.lr
+    model = build_model(seed=0, **FLAGSHIP)
+    vu = model.visual_input_unit
+    state = create_train_state(model, make_optimizer(lr, steps_per_epoch=100), seed=0)
+    for _ in range(WARMUP_STEPS):
+        train_step(state, batch, alpha=ALPHA, beta=BETA)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    runs = {}
+    for stacked in (False, True):
+        vu.batch_gats = stacked
+        reset_counts()
+        loss = forward_backward(state, batch, alpha=ALPHA, beta=BETA)["loss"].item()
+        torch.cuda.synchronize()
+        runs[stacked] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()}, counts())
+        runs[stacked] += (time_ms(lambda: forward_backward(state, batch, alpha=ALPHA, beta=BETA), 3),)
+    (loss_a, grads_a, launch_a, ms_a), (loss_b, grads_b, launch_b, ms_b) = runs[False], runs[True]
+    check(launch_a == launch_b == TRAIN_LAUNCHES["float32"], f"batch_gats train launches {launch_a} / {launch_b}")
+    rel_loss = abs(loss_b - loss_a) / max(abs(loss_a), 1e-9)
+    check(np.isfinite(loss_b) and rel_loss <= TOL_TRAIN_LOSS, f"batch_gats loss {loss_b} against {loss_a}")
+    errs = grad_errors(grads_b, grads_a)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TOL_TRAIN_GNORM, f"batch_gats gradient {worst}: {errs[worst]:.2e} > {TOL_TRAIN_GNORM}")
+    model.zero_grad(set_to_none=True)
+    del grads_a, grads_b, state
+
+    model.eval()
+    app, mot, q, qlen = batch[:4]
+    with torch.no_grad():
+        model.use_kernels = False
+        outs, plain_ms = {}, {}
+        for stacked in (False, True):
+            vu.batch_gats = stacked
+            outs[stacked] = model(app, mot, q, qlen)
+            plain_ms[stacked] = time_ms(lambda: model(app, mot, q, qlen), 3)
+        ref, got = outs[False], outs[True]
+        scale = ref.logits.abs().max().item()
+        err = max_err(got.logits, ref.logits)
+        check(err <= TOL_LOGITS * scale, f"batch_gats eval logits {err:.3e} > {TOL_LOGITS} * {scale:.3e}")
+        aux = max(max_err(getattr(got, f), getattr(ref, f)) / max(1.0, getattr(ref, f).abs().max().item())
+                  for f in ref._fields[1:])
+        check(aux <= TOL_GAT, f"batch_gats eval aux outputs {aux:.3e} > {TOL_GAT}")
+        model.use_kernels = True
+        reset_counts()
+        model(app, mot, q, qlen)
+        torch.cuda.synchronize()
+        launches = counts()
+    check(launches == EVAL_LAUNCHES["float32"], f"the batch_gats kernel eval launched {launches}")
+    say("batch_gats", after_steps=WARMUP_STEPS, rel_loss=f"{rel_loss:.2e}", tol_loss=TOL_TRAIN_LOSS,
+        worst_grad=worst, worst_grad_rel=f"{errs[worst]:.2e}", tol_grad=TOL_TRAIN_GNORM,
+        eval_logits_max_abs_err=f"{err:.3e}", eval_aux_rel_err=f"{aux:.3e}",
+        fwd_bwd_ms_per_module=f"{ms_a:.3f}", fwd_bwd_ms_stacked=f"{ms_b:.3f}",
+        plain_eval_ms_per_module=f"{plain_ms[False]:.3f}", plain_eval_ms_stacked=f"{plain_ms[True]:.3f}",
+        kernel_eval_launches=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}")
+    del model, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_gcn_cli(root, stores):
+    """Phase ``gcn cli``: phase ``cli``'s dataset under a config with no
+    ``graph_module`` key (so the default, GCN), trained for 1 epoch and
+    validated through the CLIs' library entries; the checkpoint exported for
+    cuda, and phase ``serve``'s 64 requests through the loaded artifact
+    against the live program. Returns the launches of each part."""
+    t_phase = time.perf_counter()
+    lines = open(os.path.join(root, "cli_smoke.yml")).read().splitlines()
+    kept = [ln for ln in lines if not ln.startswith("graph_module")]
+    check(len(kept) == len(lines) - 1, "phase cli's config names no graph_module")
+    kept = [("exp_name: 'cliSmokeGCN'" if ln.startswith("exp_name") else
+             "  max_epochs: 1" if ln.strip().startswith("max_epochs") else ln) for ln in kept]
+    cfg_path = os.path.join(root, "cli_gcn.yml")
+    with open(cfg_path, "w") as f:
+        f.write("\n".join(kept) + "\n")
+    raw = cfg_from_file(cfg_path)
+    check(raw.graph_module == "GCN", f"the default graph_module is {raw.graph_module!r}")
+    cfg = copy.deepcopy(raw)
+    cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+    cfg.alpha, cfg.beta, cfg.unit_layers = ALPHA, BETA, 1
+    cfg = resolve_dataset_paths(cfg)
+
+    n_steps, n_val = -(-CLI_SPLITS["train"] // BATCH), -(-CLI_SPLITS["val"] // BATCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        best_val, state = ttrain.train(cfg, feature_stores=stores)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = counts()
+    want = tuple(a * n_steps + b * n_val for a, b in zip(TRAIN_LAUNCHES["float32"], GCN_EVAL_LAUNCHES["float32"]))
+    check(train_launches == want, f"gcn train() launched {train_launches}, want {want}")
+    check(type(state.model.visual_input_unit.acGCN[0]).__name__ == "PunishGCN", "gcn cli trained no GCN")
+    kw = load_model_kwargs(os.path.join(cfg.dataset.save_dir, "ckpt"))
+    check(kw["graph_module"] == "GCN", f"model_kwargs.json says graph_module={kw['graph_module']!r}")
+    del state
+    accs, _, _, val_launches = cli_run_validate(raw, stores)
+    want = tuple(n * -(-CLI_SPLITS["test"] // BATCH) for n in GCN_EVAL_LAUNCHES["float32"])
+    check(val_launches == want, f"gcn validate.run launched {val_launches}, want {want}")
+
+    # the checkpoint exported for cuda (as python -m dualvgr_tpu_torch.export does) and served
+    model, _ = model_from_checkpoint(cfg, 1)
+    check(type(model.visual_input_unit.acGCN[0]).__name__ == "PunishGCN", "model_from_checkpoint built no GCN")
+    vd = FLAGSHIP["vision_dim"]
+    t0 = time.perf_counter()
+    payload, meta = export_serving(model, max_batch=SERVE_BATCH, app_shape=(CLIPS, FRAMES, vd),
+                                   mot_shape=(CLIPS, vd), max_q_len=QLEN, top_k=TOP_K, platforms=("cuda",))
+    export_s = time.perf_counter() - t0
+    path = os.path.join(root, "gcn.dvgr")
+    save_artifact(path, payload, meta)
+    del payload
+    predict, _ = load_artifact(path)
+    ops = graph_ops(predict.program)
+    kernel_ops = {k: n for k, n in ops.items() if k.startswith("dualvgr_torch.")}
+    check(kernel_ops == {"dualvgr_torch.bilstm_recurrence.default": 3}, f"the gcn artifact holds {kernel_ops}")
+    check(not ops["aten.chunk.default"], "the gcn artifact holds the plain recurrence")
+    reqs = serve_requests()
+    direct = direct_answers(build_predict_fn(model, TOP_K), reqs)
+    direct_answers(predict, reqs[:SERVE_BATCH])  # warm the loaded program
+    serve_launches, stats, wall = serve_through_engine("gcn cli serve", predict, reqs, direct, "float32",
+                                                       per_batch=GCN_EVAL_LAUNCHES["float32"])
+    say("gcn cli", seconds=f"{time.perf_counter() - t_phase:.1f}", config_graph_module="absent",
+        built=kw["graph_module"], train_s=f"{train_s:.2f}", steps=n_steps, best_val=f"{best_val:.4f}",
+        test_acc=f"{accs[0]:.4f}", export_s=f"{export_s:.2f}", artifact_mb=f"{os.path.getsize(path) / 1e6:.1f}",
+        graph_ops=",".join(f"{k.split('.')[1]}:{n}" for k, n in sorted(kernel_ops.items())),
+        requests=stats["requests"], batches=stats["batches"], p50_ms=f"{stats['latency_ms_p50']:.2f}",
+        p99_ms=f"{stats['latency_ms_p99']:.2f}", qa_per_s=f"{SERVE_REQUESTS / wall:.1f}",
+        launches_train=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, train_launches) if n),
+        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, val_launches) if n),
+        launches_serve=fmt_launches(serve_launches))
+    del model, predict
+    torch.cuda.empty_cache()
+    return train_launches, val_launches, serve_launches
+
+
+def phase_zoo():
+    """Phase ``zoo``: every class of the zoos (decoder and question-encoder
+    variants, graph, attention and model-utils zoos, fusions) once on CUDA
+    tensors at a small width against the same module on the CPU, with no
+    CPU tensor made on the way (``bench/zoo_check.py``)."""
+    t0 = time.perf_counter()
+    errs = check_zoo("cuda")
+    worst = max(errs, key=errs.get)
+    say("zoo", cases=len(errs), max_rel_err=f"{errs[worst]:.3e}", worst=worst, tol=TOL_ZOO,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def kernel_entry(name, source, replaces, launches, cases, per, library, side_cases=(), peak=PEAK_FP32_FLOPS,
                  **extra):
     """One row of the kernels line: the sums over the cases of one step or
@@ -1797,11 +2031,14 @@ def main():
     lstm_cases = phase_bilstm(model, app, q, qlen)
     gat_cases, gat_serve_cases = phase_gat(model, app, mot, q, qlen)
     model_ms = {}
-    model_ms["eval"], fp32_logits = phase_eval(model, app, mot, q, qlen)
+    model_ms["eval"], fp32_logits, _ = phase_eval(model, app, mot, q, qlen)
     lstm_bf16, fwd_bf16, bwd_bf16 = phase_bilstm_bf16(model, app, q, qlen,
                                                      torch.Generator(device="cuda").manual_seed(4))
-    model_ms["eval bf16"] = phase_eval_bf16(model, app, mot, q, qlen, fp32_logits)
+    model_ms["eval bf16"], _ = phase_eval_bf16(model, app, mot, q, qlen, fp32_logits)
     model.compute_dtype = "float32"
+    del fp32_logits
+    gcn_ms, gcn = phase_gcn(app, mot, q, qlen)
+    model_ms.update(gcn_ms)
     del app, mot
     torch.cuda.empty_cache()
     serve_launches = phase_serve(model)
@@ -1822,6 +2059,10 @@ def main():
     train_launches, model_ms["train"] = phase_train(batch)
     torch.cuda.empty_cache()
     train_bf16_launches, _ = phase_train(batch, "bfloat16")
+    torch.cuda.empty_cache()
+    gcn["gcn train"], model_ms["gcn train"] = phase_train(batch, graph_module="GCN")
+    torch.cuda.empty_cache()
+    gcn["batch_gats eval"] = phase_batch_gats(batch)
     del batch
     torch.cuda.empty_cache()
     k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
@@ -1830,8 +2071,10 @@ def main():
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
         cli_bf16 = phase_cli_bf16(raw, stores, accs, preds, first, model_ms)
         http_launches = phase_http(root, raw, stores["float32"], preds, export_path)
+        gcn["gcn cli train"], gcn["gcn cli validate"], gcn["gcn serve"] = phase_gcn_cli(root, stores["float32"])
         del stores
     export_dir.cleanup()
+    phase_zoo()
 
     # kernel 1 once at each of its three shapes per flagship forward, kernel
     # 2 once per stream; kernels 3 and 4 once at each of the three shapes
@@ -1847,6 +2090,13 @@ def main():
         return dict(launches_cli_train=cli_train[i], launches_cli_validate=cli_val[i],
                     launches_cli_bf16_validate=cli_bf16[i])
 
+    def gcn_launches(i):
+        """Kernel i's launches in the GCN phases: one forward (phases gcn,
+        gcn bf16), the 5 timed steps of gcn train, the gcn cli's train and
+        validate runs and its 64 served requests; and the batch_gats model's
+        kernel eval forward."""
+        return {f"launches_{k.replace(' ', '_')}": n[i] for k, n in gcn.items()}
+
     def deploy_launches(i):
         """Kernel i's launches through the loaded artifacts (phases export,
         export bf16) and the HTTP front (phase http, its three routes)."""
@@ -1858,25 +2108,26 @@ def main():
                      "dualvgr_tpu/ops/lstm_pallas.py:107", serve_launches[0], lstm_cases,
                      f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
                      "bf16-gate shapes", library=True, side_cases=lstm_bf16,
-                     launches_bf16=serve_bf16_launches[0], **cli_launches(0), **deploy_launches(0)),
+                     launches_bf16=serve_bf16_launches[0], **cli_launches(0), **deploy_launches(0),
+                     **gcn_launches(0)),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
                      "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
                      "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
                      f"forward too); *_b{SERVE_BATCH}: the same streams' first {SERVE_BATCH} videos (a served "
                      "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1],
-                     **cli_launches(1), **deploy_launches(1)),
+                     **cli_launches(1), **deploy_launches(1), **gcn_launches(1)),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "
                      "training-mode forward, input projection included; appearance_bf16: the bf16 "
                      "step's bf16 gates", library=True, side_cases=[fwd_bf16],
-                     launches_bf16=train_bf16_launches[2], **cli_launches(2)),
+                     launches_bf16=train_bf16_launches[2], **cli_launches(2), **gcn_launches(2)),
         kernel_entry("bilstm_train_bwd", "dualvgr_tpu_torch/csrc/bilstm_train_bwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:239", train_launches[3], bwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN backward, "
                      "dX, dW_ih, dW_hh and the biases' gradients included; appearance_bf16: the bf16 "
                      "step's bf16 gates", library=True, side_cases=[bwd_bf16],
-                     launches_bf16=train_bf16_launches[3], **cli_launches(3)),
+                     launches_bf16=train_bf16_launches[3], **cli_launches(3), **gcn_launches(3)),
         kernel_entry("input_proj_one", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:68", n5, k5_cases[:1],
                      "two launches (forward, time-reversed) at R = 4096, as the probe's v2; R512 at batch "
@@ -1890,11 +2141,13 @@ def main():
                      "the form on bf16 x (the bf16 train step's); tanh_to_bf16: the tanh pass alone",
                      library=True, side_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
                      launches_train_bf16=train_bf16_launches[5], **cli_launches(5), **deploy_launches(5),
+                     **gcn_launches(5),
                      library_v1_ms=k6_cases[0]["library_v1_ms"],
                      bf16_x_ms=k6_cases[0]["bf16_x_ms"], bf16_x_bound_ms=k6_cases[0]["bf16_x_bound_ms"],
                      tanh_to_bf16=dict(
                          source="dualvgr_tpu_torch/csrc/input_proj.cu", replaces="benchmarks/proj_probe.py:124",
                          launches=serve_bf16_launches[6], **cli_launches(6), **deploy_launches(6),
+                         **gcn_launches(6),
                          max_abs_err=tanh_cases[0]["err"],
                          **{k: tanh_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                          per="one call on the R = 4096 x; library: torch.tanh(x, out=bf16); R512 at batch 32",

@@ -173,7 +173,6 @@ def model_from_checkpoint(cfg, unit_layers: int, *, device="cuda"):
     from dualvgr_tpu_torch.config import model_runtime_kwargs, resolve_dataset_paths
     from dualvgr_tpu_torch.data.vocab import load_vocab
     from dualvgr_tpu_torch.models.dualvgr import build_model
-    from dualvgr_tpu_torch.train import require_gat
     from dualvgr_tpu_torch.utils.checkpoint import load_model_kwargs, load_reference_checkpoint
 
     dev = resolve_device(device)
@@ -183,7 +182,6 @@ def model_from_checkpoint(cfg, unit_layers: int, *, device="cuda"):
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     vocab = load_vocab(resolve_dataset_paths(cfg).dataset.vocab_json)
     kw = load_model_kwargs(ckpt_dir)
-    require_gat(kw.get("graph_module", "GAT"))
     runtime = model_runtime_kwargs(cfg, dev)
     model = build_model(
         device=dev,
@@ -194,6 +192,7 @@ def model_from_checkpoint(cfg, unit_layers: int, *, device="cuda"):
         question_vocab_size=len(vocab["question_token_to_idx"]),
         num_answers=len(vocab["answer_token_to_idx"]),
         num_of_nodes=kw["num_of_nodes"],
+        graph_module=kw.get("graph_module", "GAT"),
         graph_layers=kw["graph_layers"],
         unit_layers=unit_layers,
         **runtime,

@@ -6,13 +6,22 @@ at the reference's ``classifier`` indices 0 and 4 and hold no state, so the
 Linear and batch-norm layers keep the reference's indices 1, 3 and 5 in the
 state_dict. The three Linears are streamed under ``compute_dtype:
 bfloat16``.
+
+The reference's unused decoder variants, for component parity with the JAX
+package (``decoder.py:84-190``): ``ConcatELUAttn``, ``MFBAttn`` and
+``SimpleConcatELUAttn`` (question-conditioned clip aggregation) and
+``GateOutputUnitOpenEnded``. Their submodules carry the flax names, their
+Linears flax's xavier init with zero biases, and they are not streamed.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from dualvgr_tpu_torch.models.fusion import MFB
+from dualvgr_tpu_torch.models.init import dense
 from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops.precision import SLinear
 
@@ -80,3 +89,83 @@ class OutputUnitOpenEnded(nn.Module):
         x = drop0(torch.cat([visual_embedding, self.question_proj(question_embedding)], dim=1), generator)
         x = bn(elu(fc1(x)), valid)
         return out(drop4(x, generator))
+
+
+class _ClipAttn(nn.Module):
+    """Shared body of the distillation variants: dropout 0.15 on the clips,
+    q_proj and v_proj (no bias), attention logits from ``_scores``, softmax
+    over clips, the weighted sum of the dropped-out clips."""
+
+    def __init__(self, module_dim: int = 768):
+        super().__init__()
+        self.drop = Dropout(0.15)
+        self.q_proj = dense(module_dim, module_dim, bias=False, init="xavier")
+        self.v_proj = dense(module_dim, module_dim, bias=False, init="xavier")
+
+    def forward(self, question_rep, visual_feat, generator=None):
+        """question_rep (B, D); visual_feat (B, N, D) -> (B, D)."""
+        visual_feat = self.drop(visual_feat, generator)
+        q = self.q_proj(question_rep)[:, None]
+        v = self.v_proj(visual_feat)
+        attn = torch.softmax(self.attn(self._scores(q, v)), dim=1)
+        return (attn * visual_feat).sum(dim=1)
+
+
+class ConcatELUAttn(_ClipAttn):
+    """Attention over [v_proj, q_proj * v_proj] -> ELU (reference
+    AnswerDecoder.py:7-43)."""
+
+    def __init__(self, module_dim: int = 768):
+        super().__init__(module_dim)
+        self.cat = dense(2 * module_dim, module_dim, init="xavier")
+        self.attn = dense(module_dim, 1, init="xavier")
+
+    def _scores(self, q, v):
+        return F.elu(self.cat(torch.cat([v, q * v], dim=-1)))
+
+
+class MFBAttn(_ClipAttn):
+    """Attention logits from MFB(v_proj, q_proj * v_proj) (reference
+    AnswerDecoder.py:45-79)."""
+
+    def __init__(self, module_dim: int = 768):
+        super().__init__(module_dim)
+        self.cat = MFB(module_dim, module_dim, mm_dim=module_dim, factor=2)
+        self.attn = dense(module_dim, 1, init="xavier")
+
+    def _scores(self, q, v):
+        return self.cat(v, q.expand_as(v) * v)
+
+
+class SimpleConcatELUAttn(_ClipAttn):
+    """Attention over [v_proj, q_proj] -> ELU (reference
+    AnswerDecoder.py:117-153; MFBSimpleAttn, :81-115, cannot construct in
+    the reference and is left out, as in the JAX package)."""
+
+    def __init__(self, module_dim: int = 768):
+        super().__init__(module_dim)
+        self.cat = dense(2 * module_dim, module_dim, init="xavier")
+        self.attn = dense(module_dim, 1, init="xavier")
+
+    def _scores(self, q, v):
+        return F.elu(self.cat(torch.cat([v, q.expand_as(v)], dim=-1)))
+
+
+class GateOutputUnitOpenEnded(nn.Module):
+    """The classifier with a learned multiplicative gate over [visual, q']
+    (reference AnswerDecoder.py:204-225)."""
+
+    def __init__(self, module_dim: int = 768, num_answers: int = 1000):
+        super().__init__()
+        self.question_proj = dense(module_dim, module_dim, init="xavier")
+        self.gate = dense(2 * module_dim, 2 * module_dim, init="xavier")
+        self.drop = Dropout(0.15)
+        self.fc1 = dense(2 * module_dim, module_dim, init="xavier")
+        self.bn = MaskedBatchNorm(module_dim)
+        self.classifier = dense(module_dim, num_answers, init="xavier")
+
+    def forward(self, question_embedding, visual_embedding, valid=None, generator=None):
+        out = torch.cat([visual_embedding, self.question_proj(question_embedding)], dim=1)
+        out = self.drop(self.gate(out) * out, generator)
+        out = self.bn(F.elu(self.fc1(out)), valid)
+        return self.classifier(self.drop(out, generator))

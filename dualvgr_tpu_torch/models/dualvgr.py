@@ -6,18 +6,27 @@ clip aggregation -> open-ended classifier.
 
 One unit cycle: QueryAttn re-reads the question into a guided query,
 QueryPunish scores each clip of both streams, then per graph layer a
-"common" and a "specific" punished GAT run over the dense clip graph of
-each stream, AttentionSFGCN fuses [common, specific], and the fusion is
-added to the stream. As in the JAX package, GAT bank k is
+"common" and a "specific" punished graph module run over the dense clip
+graph of each stream, AttentionSFGCN fuses [common, specific], and the
+fusion is added to the stream. As in the JAX package, bank k is
 cycle * graph_layers + layer and ``unit_layers`` is wired through.
+
+``graph_module`` picks the banks' module: "GAT" (PunishGAT, the reference's
+live one) or "GCN" (PunishGCN, the config's default). The banks keep the
+reference's names (``acGCN``, ``appearance_GCN``, ``mcGCN``,
+``motion_GCN``) either way. ``batch_gats`` (GAT only, as in the JAX
+package; a constructor argument, no config key) runs the four banks of each
+graph layer as one stacked computation, with one dropout site at the
+banks' rate: the same outputs as the per-module path with dropout off.
 
 Eval mode (the default, ``model.eval()``) runs without autograd. Training
 mode (``model.train()``) takes a ``valid`` mask for the classifier's batch
 statistics and a generator for the dropout sites, and is differentiable.
 
 With ``use_kernels`` the model runs the port's CUDA kernels on CUDA
-tensors: in eval the BiLSTM recurrence in all three BiLSTMs and, with
-graph_layers == 1, one fused graph cycle per stream and unit; in training
+tensors: in eval the BiLSTM recurrence in all three BiLSTMs and, with the
+GAT module and graph_layers == 1, one fused graph cycle per stream and unit
+(ahead of ``batch_gats``, as in the JAX package); in training
 the trainable BiLSTM forward/backward pair in all three BiLSTMs, while the
 graph cycles run as the plain modules under autograd (the fused cycle has
 no backward, in the JAX package either). Without ``use_kernels``, or on
@@ -39,17 +48,19 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dualvgr_tpu_torch.models.attention import ContextSelfAttn, QueryAttn, QueryPunish
 from dualvgr_tpu_torch.models.decoder import OutputUnitOpenEnded
 from dualvgr_tpu_torch.models.encoders import AppearanceEncoder, MotionEncoder, QuestionEncoder
 from dualvgr_tpu_torch.models.fusion import MFB
-from dualvgr_tpu_torch.models.graph import AttentionSFGCN, PunishGAT, dense_self_loop_adjacency
+from dualvgr_tpu_torch.models.graph import AttentionSFGCN, PunishGAT, PunishGCN, dense_self_loop_adjacency
 from dualvgr_tpu_torch.models.init import init_dualvgr_
+from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops.gat_kernel import MAX_DIM, MAX_NODES, gat_cycle
 from dualvgr_tpu_torch.ops.lstm_kernel import MAX_HIDDEN
-from dualvgr_tpu_torch.ops.precision import stream_dtype_of
+from dualvgr_tpu_torch.ops.precision import stream_dtype_of, streamed_einsum
 from dualvgr_tpu_torch.utils.device import resolve_device
 
 
@@ -75,28 +86,56 @@ class DualVGRUnitStack(nn.Module):
     """Stacked DualVGR reasoning units (reference models.py:86-173)."""
 
     def __init__(self, word_dim: int = 300, module_dim: int = 768, num_of_nodes: int = 8,
-                 graph_layers: int = 1, unit_layers: int = 2):
+                 graph_layers: int = 1, unit_layers: int = 2, graph_module: str = "GAT",
+                 batch_gats: bool = False):
         super().__init__()
+        if graph_module not in ("GAT", "GCN"):
+            raise ValueError(f"unknown graph_module {graph_module!r}")  # the JAX package's error
         d = module_dim
         u, g = unit_layers, graph_layers
         self.num_of_nodes = num_of_nodes
         self.graph_layers, self.unit_layers = g, u
+        self.graph_module, self.batch_gats = graph_module, batch_gats
         self.queryAttn = nn.ModuleList(QueryAttn(d) for _ in range(u))
         self.queryPunish_appear = nn.ModuleList(QueryPunish(word_dim, d) for _ in range(u))
         self.queryPunish_motion = nn.ModuleList(QueryPunish(word_dim, d) for _ in range(u))
-        mk_gat = lambda: PunishGAT(4, d // 4, in_dim=d)
-        self.acGCN = nn.ModuleList(mk_gat() for _ in range(u * g))
-        self.appearance_GCN = nn.ModuleList(mk_gat() for _ in range(u * g))
-        self.mcGCN = nn.ModuleList(mk_gat() for _ in range(u * g))
-        self.motion_GCN = nn.ModuleList(mk_gat() for _ in range(u * g))
+        mk = (lambda: PunishGAT(4, d // 4, in_dim=d)) if graph_module == "GAT" else (lambda: PunishGCN(d))
+        self.acGCN = nn.ModuleList(mk() for _ in range(u * g))
+        self.appearance_GCN = nn.ModuleList(mk() for _ in range(u * g))
+        self.mcGCN = nn.ModuleList(mk() for _ in range(u * g))
+        self.motion_GCN = nn.ModuleList(mk() for _ in range(u * g))
         self.attention_appearance = nn.ModuleList(AttentionSFGCN(d, d) for _ in range(u))
         self.attention_motion = nn.ModuleList(AttentionSFGCN(d, d) for _ in range(u))
         self.visualfusion = MFB(d, d)
+        # the stacked banks' one dropout site, at the banks' own rate
+        self.cycle_drop = Dropout(self.acGCN[0].drop.p)
 
     @staticmethod
     def _fused_cycle(h, scores, gat_c, gat_s, sfgcn):
         """One stream's cycle through ``gat_cycle``: (out, common, spec)."""
         return gat_cycle(h, scores, *gat_c.merged(), *gat_s.merged(), *sfgcn.merged())
+
+    def _gat4_batched(self, x4, scores4, adj, gats, generator):
+        """One graph layer's four PunishGATs [ac, appearance, mc, motion] as
+        one stacked computation (JAX ``_gat4_batched``): x4 (4, B, N, D) =
+        [aq, aq, mq, mq], scores4 (4, B, N, hd) -> (4, B, N, H*hd). Each
+        dropout site draws one mask for the four banks."""
+        g0 = gats[0]
+        nh, hd = g0.n_heads, g0.head_dim
+        k4, b, n, _ = x4.shape
+        w4, b4, a4, ab4 = (torch.stack(t) for t in zip(*(g.merged() for g in gats)))
+        x4 = self.cycle_drop(x4, generator)
+        wh = streamed_einsum("kbnd,kdh->kbnh", x4, w4, g0.stream_dtype)
+        wh = (wh + b4[:, None, None, :]).view(k4, b, n, nh, hd)
+        src = torch.einsum("kbnhd,khd->kbhn", wh, a4[..., :hd])
+        dst = torch.einsum("kbnhd,khd->kbhn", wh, a4[..., hd:])
+        e = src[..., :, None] + dst[..., None, :] + ab4[:, None, :, None, None]
+        e = F.leaky_relu(e, g0.alpha)
+        e = torch.where(adj[None, None, None] > 0, e, torch.full_like(e, -9e15))
+        wh = wh * scores4[:, :, :, None, :]
+        attn = self.cycle_drop(torch.softmax(e, dim=-1), generator)
+        out = F.elu(torch.einsum("kbhij,kbjhd->kbihd", attn, wh)).reshape(k4, b, n, nh * hd)
+        return self.cycle_drop(out, generator)
 
     def forward(self, appearance_feat, motion_feat, dynamic_question_embedding,
                 word_embedding, question_len, *, use_kernels: bool, generator=None):
@@ -104,9 +143,10 @@ class DualVGRUnitStack(nn.Module):
             self.num_of_nodes, appearance_feat.dtype, appearance_feat.device
         )
         # the fused kernel covers exactly one GAT cycle (common, specific,
-        # fusion, residual) and has no backward; deeper graph stacks and
-        # training take the plain modules
-        fused = use_kernels and not self.training and self.graph_layers == 1
+        # fusion, residual) and has no backward; deeper graph stacks, GCN
+        # and training take the plain modules
+        fused = use_kernels and not self.training and self.graph_layers == 1 and self.graph_module == "GAT"
+        batched = self.batch_gats and self.graph_module == "GAT"
         aq_fusion, mq_fusion, com_app_list, com_motion_list = [], [], [], []
         aq_embed = mq_embed = None
 
@@ -133,18 +173,34 @@ class DualVGRUnitStack(nn.Module):
                 com_motion_list.append(com_m)
                 continue
 
-            for j in range(self.graph_layers):
-                k = i * self.graph_layers + j
-                com_app = self.acGCN[k](aq, adj, app_scores, generator)
-                aq = self.appearance_GCN[k](aq, adj, app_scores, generator)
-                aq_fusion.append(aq)
-                com_app_list.append(com_app)
-            for j in range(self.graph_layers):
-                k = i * self.graph_layers + j
-                com_motion = self.mcGCN[k](mq, adj, mot_scores, generator)
-                mq = self.motion_GCN[k](mq, adj, mot_scores, generator)
-                mq_fusion.append(mq)
-                com_motion_list.append(com_motion)
+            if batched:
+                # common and specific read the same input, so each graph
+                # layer's four banks stack exactly
+                for j in range(self.graph_layers):
+                    k = i * self.graph_layers + j
+                    com_app, aq, com_motion, mq = self._gat4_batched(
+                        torch.stack([aq, aq, mq, mq]),
+                        torch.stack([app_scores, app_scores, mot_scores, mot_scores]), adj,
+                        [self.acGCN[k], self.appearance_GCN[k], self.mcGCN[k], self.motion_GCN[k]],
+                        generator,
+                    )
+                    aq_fusion.append(aq)
+                    com_app_list.append(com_app)
+                    mq_fusion.append(mq)
+                    com_motion_list.append(com_motion)
+            else:
+                for j in range(self.graph_layers):
+                    k = i * self.graph_layers + j
+                    com_app = self.acGCN[k](aq, adj, app_scores, generator)
+                    aq = self.appearance_GCN[k](aq, adj, app_scores, generator)
+                    aq_fusion.append(aq)
+                    com_app_list.append(com_app)
+                for j in range(self.graph_layers):
+                    k = i * self.graph_layers + j
+                    com_motion = self.mcGCN[k](mq, adj, mot_scores, generator)
+                    mq = self.motion_GCN[k](mq, adj, mot_scores, generator)
+                    mq_fusion.append(mq)
+                    com_motion_list.append(com_motion)
 
             aq_embed, _ = self.attention_appearance[i](torch.stack([com_app, aq], dim=1))
             mq_embed, _ = self.attention_motion[i](torch.stack([com_motion, mq], dim=1))
@@ -159,8 +215,8 @@ class DualVGRUnitStack(nn.Module):
 
 
 class DualVGR(nn.Module):
-    """Full network (reference model/models.py:36-83) with the GAT graph
-    module (the reference's live one; ``PunishGCN`` is not ported yet).
+    """Full network (reference model/models.py:36-83), with the GAT or the
+    GCN graph module (``graph_module``).
 
     Parameters are drawn at construction with the reference's init from
     ``generator`` (a fresh generator seeded 0 when none is given).
@@ -169,6 +225,7 @@ class DualVGR(nn.Module):
     def __init__(self, vision_dim: int = 2048, module_dim: int = 768, word_dim: int = 300,
                  question_vocab_size: int = 1000, num_answers: int = 1000,
                  num_of_nodes: int = 8, graph_layers: int = 1, unit_layers: int = 2,
+                 graph_module: str = "GAT", batch_gats: bool = False,
                  use_kernels: bool = True, compute_dtype: str = "float32",
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -177,7 +234,7 @@ class DualVGR(nn.Module):
         self.visual_appearance_input_unit = AppearanceEncoder(vision_dim, module_dim)
         self.visual_motion_input_unit = MotionEncoder(vision_dim, module_dim)
         self.visual_input_unit = DualVGRUnitStack(
-            word_dim, module_dim, num_of_nodes, graph_layers, unit_layers
+            word_dim, module_dim, num_of_nodes, graph_layers, unit_layers, graph_module, batch_gats
         )
         self.feature_aggregation = ContextSelfAttn(module_dim)
         self.output_unit = OutputUnitOpenEnded(module_dim, num_answers)
@@ -237,22 +294,24 @@ class DualVGR(nn.Module):
 
 
 def kernel_dim_limits(*, vision_dim: int = 2048, module_dim: int = 768, num_of_nodes: int = 8,
-                      graph_layers: int = 1, compute_dtype: str = "float32", **_) -> list[str]:
+                      graph_layers: int = 1, graph_module: str = "GAT", compute_dtype: str = "float32",
+                      **_) -> list[str]:
     """One message for each limit of the port's CUDA kernels that a model
     with these dims (DualVGR's defaults for those not given; the others are
     ignored) breaks on the kernel path; empty if it breaks none.
 
     The BiLSTM kernels (1, 3, 4) take hidden size module_dim // 2; the graph
-    cycle (kernel 2) runs only with graph_layers == 1; the projection
-    (kernel 6) and its tanh pass only under compute_dtype "bfloat16", on the
-    appearance features (D = vision_dim) into 4H gate columns.
+    cycle (kernel 2) runs only with the GAT module and graph_layers == 1, so
+    only there do its limits apply; the projection (kernel 6) and its tanh
+    pass only under compute_dtype "bfloat16", on the appearance features
+    (D = vision_dim) into 4H gate columns.
     """
     out = []
     hidden = module_dim // 2
     if hidden % 4 or hidden > MAX_HIDDEN:
         out.append(f"the BiLSTM kernels take hidden size module_dim // 2 = {hidden} only if it is a multiple "
                    f"of 4 and at most {MAX_HIDDEN}")
-    if graph_layers == 1:
+    if graph_module == "GAT" and graph_layers == 1:
         if num_of_nodes > MAX_NODES:
             out.append(f"the graph-cycle kernel takes num_of_nodes <= {MAX_NODES}, got {num_of_nodes}")
         if module_dim > MAX_DIM or module_dim % 4:
@@ -270,7 +329,9 @@ def build_model(*, device: str | torch.device = "cuda", seed: int = 0,
     (so the weights do not depend on the device and not on
     ``compute_dtype``). ``dims`` are DualVGR's size arguments (vision_dim,
     module_dim, word_dim, question_vocab_size, num_answers, num_of_nodes,
-    graph_layers, unit_layers). Raises on a machine without CUDA unless
+    graph_layers, unit_layers) and its ``graph_module`` ("GAT", the
+    default, or "GCN"; any other raises ``ValueError``) and
+    ``batch_gats``. Raises on a machine without CUDA unless
     ``device='cpu'``, and raises ``ValueError`` for a model with kernels on
     a CUDA device whose dims a kernel cannot take (``kernel_dim_limits``),
     before any forward. On the CPU the wrappers run their plain versions,

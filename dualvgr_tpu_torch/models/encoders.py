@@ -26,6 +26,13 @@ Under ``compute_dtype: bfloat16`` every BiLSTM streams its input projection
 and rounds its gates to bf16 (``ops/lstm.py``); in eval with ``use_kernel``
 the appearance encoder's projection is one launch of kernel 6 with tanh
 fused, from the raw clips (``ops/lstm.py::appearance_final_bf16``).
+
+The reference's unused question-encoder variants, for component parity
+with the JAX package (``encoders.py:220-294``): ``SimpleQuestionEncoder``
+and ``MultiGranularQuestionEncoder``. As in the JAX package their BiLSTMs
+take the plain path only (MultiGranular's hidden size of 512 is beyond
+the recurrence kernels' 384 anyway), and their submodules carry the flax
+names.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dualvgr_tpu_torch.models.init import flax_init_
 from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops.lstm import LSTMParams, appearance_final_bf16, bilstm
 from dualvgr_tpu_torch.ops.precision import SLinear
@@ -130,3 +138,72 @@ class MotionEncoder(SLinear):
 
     def __init__(self, vision_dim: int = 2048, module_dim: int = 768):
         super().__init__(vision_dim, module_dim)
+
+
+def _embedding(vocab_size: int, word_dim: int) -> nn.Embedding:
+    """The reference's U(-1, 1) word embedding."""
+    emb = nn.Embedding(vocab_size, word_dim)
+    nn.init.uniform_(emb.weight, -1.0, 1.0)
+    return emb
+
+
+def _xavier_lstm(lstm: BiLSTM) -> BiLSTM:
+    """xavier_uniform weights on torch's (4H, D) shapes, zero biases (the
+    JAX BiLSTM's init)."""
+    for name, p in lstm.named_parameters():
+        if p.ndim == 2:
+            flax_init_(p, "xavier", p.shape[1], p.shape[0])
+    return lstm
+
+
+class SimpleQuestionEncoder(nn.Module):
+    """InputUnitLinguistic (reference model/Preprocessing.py:47-86): one
+    BiLSTM gives both the per-step outputs and the final-state embedding."""
+
+    def __init__(self, vocab_size: int, word_dim: int = 300, module_dim: int = 768):
+        super().__init__()
+        self.encoder_embed = _embedding(vocab_size, word_dim)
+        self.drop_words = Dropout(0.15)
+        self.concat_rnn = _xavier_lstm(BiLSTM(word_dim, module_dim // 2))
+        self.drop_sentence = Dropout(0.18)
+
+    def forward(self, question, question_len, generator=None):
+        """-> (question_embedding (B, D), words (B, T, word_dim), outputs (B, T, D))."""
+        words = torch.tanh(self.drop_words(self.encoder_embed(question), generator))
+        outputs, final = self.concat_rnn(words, question_len, with_outputs=True, use_kernel=False)
+        return self.drop_sentence(final, generator), words, outputs
+
+
+class MultiGranularQuestionEncoder(nn.Module):
+    """MultiGranularInputUnitLinguistic (reference Preprocessing.py:129-189):
+    word, phrase (1-, 2-, 3-gram dilated convolutions, max over the three)
+    and sentence (a BiLSTM over the phrases) granularities, concatenated,
+    then a BiLSTM over the concatenation."""
+
+    # (kernel, padding, dilation) of the uni-, bi- and trigram convolutions:
+    # each keeps the sequence length
+    GRAMS = (("unigram_conv", 1, 0, 1), ("bigram_conv", 2, 1, 2), ("trigram_conv", 3, 2, 2))
+
+    def __init__(self, vocab_size: int, word_dim: int = 300, module_dim: int = 512):
+        super().__init__()
+        d = module_dim
+        self.encoder_embed = _embedding(vocab_size, word_dim)
+        self.drop = Dropout(0.15)
+        for name, k, pad, dil in self.GRAMS:
+            conv = nn.Conv1d(word_dim, d, k, padding=pad, dilation=dil)
+            flax_init_(conv.weight, "xavier", word_dim * k, d * k)
+            nn.init.zeros_(conv.bias)
+            self.add_module(name, conv)
+        self.encoder = _xavier_lstm(BiLSTM(d, d // 2))
+        self.concat_rnn = _xavier_lstm(BiLSTM(word_dim + 2 * d, d))
+
+    def forward(self, question, question_len, generator=None):
+        """-> (final (B, 2D), words (B, T, word_dim), dynamic (B, T, 2D))."""
+        words = torch.tanh(self.drop(self.encoder_embed(question), generator))
+        w = words.transpose(1, 2)  # (B, word_dim, T) for the convolutions
+        grams = [getattr(self, name)(w) for name, *_ in self.GRAMS]
+        phrase = torch.stack(grams, dim=2).amax(dim=2).transpose(1, 2)  # (B, T, D)
+        sentence, _ = self.encoder(phrase, with_outputs=True, use_kernel=False)
+        concat = torch.cat([words, phrase, sentence], dim=2)
+        dynamic, final = self.concat_rnn(concat, question_len, with_outputs=True, use_kernel=False)
+        return self.drop(final, generator), words, self.drop(dynamic, generator)

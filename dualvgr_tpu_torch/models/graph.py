@@ -16,9 +16,19 @@ not the logits, are gated by the punishment scores.
 Under ``compute_dtype: bfloat16`` PunishGAT's W product and AttentionSFGCN's
 projection are streamed (``ops/precision.py``); the fused cycle kernel
 (``ops/gat_kernel.py``) stays fp32, as the JAX package's does.
+
+``PunishGCN`` (``graph_module: GCN``, the config's default) is the JAX
+package's working form of the reference's declared-but-unbuilt GCN option:
+relu(adj @ ((h * score) @ W)) with output dropout 0.15. Its
+``GraphConvolution`` keeps the reference's (in, out) weight used as
+``x @ W`` (GraphNN.py:9-46), not an ``nn.Linear``, and is never streamed:
+the JAX package's GCN multiplies with a plain fp32 ``@`` under
+``compute_dtype: bfloat16`` too.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -38,15 +48,15 @@ class _GATHead(nn.Module):
 class PunishGAT(nn.Module):
     """Multi-head query-punished GAT (reference GraphNN.py:77-178)."""
 
-    alpha = 0.01  # LeakyReLU slope of the logits
-
-    def __init__(self, n_heads: int = 4, head_dim: int = 192, in_dim: int = 768):
+    def __init__(self, n_heads: int = 4, head_dim: int = 192, in_dim: int = 768, dropout: float = 0.15,
+                 alpha: float = 0.01):
         super().__init__()
         self.n_heads, self.head_dim = n_heads, head_dim
+        self.alpha = alpha  # LeakyReLU slope of the logits
         self.stream_dtype: torch.dtype | None = None
         for h in range(n_heads):
             self.add_module(f"attention_{h}", _GATHead(in_dim, head_dim))
-        self.drop = Dropout(0.15)
+        self.drop = Dropout(dropout)
 
     def merged(self):
         """(w (D, H*hd), b (H*hd,), a (H, 2*hd), a_bias (H,)), contiguous."""
@@ -98,6 +108,48 @@ class AttentionSFGCN(nn.Module):
         """z (B, K, N, D) -> ((B, N, D), beta (B, K, N, 1))."""
         beta = torch.softmax(self.project(z), dim=1)
         return (beta * z).sum(dim=1), beta
+
+
+class GraphConvolution(nn.Module):
+    """Kipf-style GCN layer: adj @ (x @ W) (reference GraphNN.py:9-46), with
+    the reference's uniform(-1/sqrt(out), 1/sqrt(out)) init drawn from
+    ``generator`` (``reset_parameters``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        stdv = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            for p in (self.weight, self.bias):
+                if p is not None:
+                    p.uniform_(-stdv, stdv, generator=generator)
+
+    def forward(self, x, adj):
+        out = torch.einsum("nm,...md->...nd", adj, x @ self.weight)
+        return out + self.bias if self.bias is not None else out
+
+
+class PunishGCN(nn.Module):
+    """The punished GCN of ``graph_module: GCN`` (JAX ``models/graph.py``
+    ``PunishGCN``): the per-clip punishment score gates the node features,
+    then relu(adj @ (x @ W)) and output dropout 0.15. It drops neither its
+    input nor an attention (it has none), unlike PunishGAT."""
+
+    def __init__(self, dim: int = 768):
+        super().__init__()
+        self.gc1 = GraphConvolution(dim, dim)
+        self.drop = Dropout(0.15)
+
+    def forward(self, h, adj, scores, generator=None):
+        """h (B, N, D); adj (N, N); scores (B, N, hd) or None -> (B, N, D)."""
+        if scores is not None:
+            # the scores are one per-clip scalar broadcast over hd columns
+            h = h * scores[..., :1]
+        return self.drop(F.relu(self.gc1(h, adj)), generator)
 
 
 def dense_self_loop_adjacency(num_nodes: int, dtype=torch.float32, device=None):

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence, bilstm_recurrence_reference
+from dualvgr_tpu_torch.ops.lstm_kernel import _lstm_step, bilstm_recurrence, bilstm_recurrence_reference
 from dualvgr_tpu_torch.ops.lstm_train import appearance_bilstm_train, bilstm_trainable, input_proj
 from dualvgr_tpu_torch.ops.precision import stream_roundtrip
 from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both
@@ -109,3 +109,25 @@ def bilstm(
     final, outs = res if with_outputs else (res, None)
     # kernel 1 gives its outputs in the gates' dtype
     return (outs.float() if with_outputs else None), final.float()
+
+
+def lstm_unroll(params: LSTMParams, x, lengths=None):
+    """Single-direction masked LSTM over x (B, T, D), plain PyTorch (the
+    JAX package's ``ops/lstm.py::lstm_unroll``, forward in time): the state
+    carried through padding, the outputs zero there. Returns (outputs
+    (B, T, H), final h (B, H))."""
+    xp = time_major_input_proj(x, params)  # (T, B, 4H)
+    t_total, b, g = xp.shape
+    h = c = xp.new_zeros((b, g // 4))
+    w_hh = params.w_hh.t()
+    outs = []
+    for t in range(t_total):
+        h_new, c_new = _lstm_step(xp[t] + h @ w_hh, c)
+        if lengths is None:
+            h, c = h_new, c_new
+            outs.append(h)
+        else:
+            m = (t < lengths.to(device=x.device).view(b, 1))
+            h, c = torch.where(m, h_new, h), torch.where(m, c_new, c)
+            outs.append(h * m)
+    return torch.stack(outs, dim=1), h

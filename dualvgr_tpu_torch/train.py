@@ -15,8 +15,8 @@ autosave at every epoch end and on SIGTERM/SIGINT at the next step
 (deleted on a clean finish), the ``tpu.metrics_jsonl`` stream and, with
 ``tpu.profile_dir``, a ``torch.profiler`` Chrome trace of the second
 epoch. It runs on the CUDA device unless ``--device cpu`` is given; there
-is no fallback. The port builds the GAT graph module only
-(``graph_module: GAT``); the config default "GCN" is refused.
+is no fallback. ``graph_module`` is "GCN" (the config default) or "GAT";
+any other raises the JAX package's ValueError.
 """
 
 from __future__ import annotations
@@ -43,22 +43,11 @@ from dualvgr_tpu_torch.utils.device import resolve_device
 from dualvgr_tpu_torch.utils.logging import MetricsWriter, setup_logging, train_ticker
 
 
-def require_gat(graph_module: str) -> None:
-    """The port builds the GAT graph module only; refuse any other rather
-    than build GAT in its place."""
-    if graph_module != "GAT":
-        raise ValueError(
-            f"graph_module={graph_module!r}: the port builds only the GAT graph module; PunishGCN "
-            "('GCN', the config default) is not ported yet (ROADMAP.md, queue 1, item 3). Set "
-            "graph_module: 'GAT'"
-        )
-
-
 def build_model(cfg, vocab, device) -> DualVGR:
-    require_gat(cfg.graph_module)
     return build_dualvgr(
         device=device,
         seed=cfg.seed,
+        graph_module=cfg.graph_module,
         vision_dim=cfg.train.vision_dim,
         module_dim=cfg.train.module_dim,
         word_dim=cfg.train.word_dim,

@@ -11,8 +11,10 @@ its directory layout:
   (reference train.py:359-367) — ``epoch``, ``state_dict`` (the model's,
   in the reference's key names), ``optimizer`` (Adam's ``state_dict()``)
   and ``model_kwargs`` — so that the reference's validate.py and the JAX
-  package's ``port_reference.convert_reference_checkpoint`` read it as a
-  reference ``*_model.pt``; beside them the port's own ``step``,
+  package's ``port_reference.convert_reference_checkpoint`` read a GAT
+  model's file as a reference ``*_model.pt`` (a GCN model's file has the
+  same schema, but neither the reference nor that converter builds GCN
+  banks); beside them the port's own ``step``,
   ``updates``, ``mini_step``, ``acc_grads`` and ``generator`` (the dropout
   generator's ``get_state()``).
 

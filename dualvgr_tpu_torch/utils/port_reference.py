@@ -74,7 +74,10 @@ def checked_model(sd: dict, kwargs: dict, device):
     ``device`` with ``sd`` loaded strictly: raises on a missing, extra or
     misshapen weight."""
     if kwargs.get("graph_module", "GAT") != "GAT":
-        raise ValueError(f"graph_module={kwargs['graph_module']!r}: the port builds only the GAT graph module")
+        raise ValueError(
+            f"graph_module={kwargs['graph_module']!r}: a reference checkpoint holds GAT banks only (the "
+            "reference builds no GCN weights, and the JAX package's converter builds GAT banks only), so a "
+            "GCN model has no reference .pt form; keep it as a port checkpoint")
     model = build_model(
         device=device, use_kernels=False,
         question_vocab_size=int(_weight(sd, "linguistic_input_unit.encoder_embed.weight").shape[0]),

@@ -7,13 +7,23 @@ JAX package's ``{'params', 'batch_stats'}`` tree (numpy leaves) onto the
 same names: its own copy of the inverse mapping in the JAX package's
 ``utils/port_reference.py``. Head-merged GAT kernels are split back into the
 reference's per-head ``attention_{h}.W`` / ``.a`` Linears, and every
-(in, out) kernel is transposed to torch's (out, in).
+(in, out) kernel is transposed to torch's (out, in). A GCN model's banks
+(``ac_gat_{k}/gc1/weight``, no bias) go to ``acGCN.{k}.gc1.weight``
+untransposed: the reference's GraphConvolution weight is an (in, out)
+parameter used as ``x @ W``, not a Linear. (The JAX package's own inverse
+mapping reads GAT banks only.)
+
+``load_flax_params`` carries a flax module's params onto the port's
+counterpart of any module of the zoos (``models/{decoder,encoders,
+graph_zoo,attention_zoo,utils_zoo,fusions}.py``), whose submodules carry
+the flax names.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _inv_linear(params, prefix, out, bias=True):
@@ -40,6 +50,16 @@ def _inv_gat(params, prefix, out):
         out[f"{prefix}.attention_{h}.W.bias"] = wb[h]
         out[f"{prefix}.attention_{h}.a.weight"] = a[h : h + 1]
         out[f"{prefix}.attention_{h}.a.bias"] = ab[h : h + 1]
+
+
+def _inv_bank(params, prefix, out):
+    """One graph bank: a PunishGAT (``w_kernel``, ...) or a PunishGCN
+    (``gc1/weight``, untransposed)."""
+    if "gc1" in params:
+        for name, v in params["gc1"].items():
+            out[f"{prefix}.gc1.{name}"] = np.asarray(v)
+    else:
+        _inv_gat(params, prefix, out)
 
 
 def _inv_sfgcn(params, prefix, out):
@@ -93,10 +113,10 @@ def reference_state_dict(variables: dict) -> dict:
         _inv_sfgcn(vu[f"attention_appearance_{i}"], f"{pre}.attention_appearance.{i}", sd)
         _inv_sfgcn(vu[f"attention_motion_{i}"], f"{pre}.attention_motion.{i}", sd)
     for k in range(banks):
-        _inv_gat(vu[f"ac_gat_{k}"], f"visual_input_unit.acGCN.{k}", sd)
-        _inv_gat(vu[f"appearance_gat_{k}"], f"visual_input_unit.appearance_GCN.{k}", sd)
-        _inv_gat(vu[f"mc_gat_{k}"], f"visual_input_unit.mcGCN.{k}", sd)
-        _inv_gat(vu[f"motion_gat_{k}"], f"visual_input_unit.motion_GCN.{k}", sd)
+        _inv_bank(vu[f"ac_gat_{k}"], f"visual_input_unit.acGCN.{k}", sd)
+        _inv_bank(vu[f"appearance_gat_{k}"], f"visual_input_unit.appearance_GCN.{k}", sd)
+        _inv_bank(vu[f"mc_gat_{k}"], f"visual_input_unit.mcGCN.{k}", sd)
+        _inv_bank(vu[f"motion_gat_{k}"], f"visual_input_unit.motion_GCN.{k}", sd)
     for name in ("linear0", "linear1", "linear_out"):
         _inv_linear(vu["visual_fusion"][name], f"visual_input_unit.visualfusion.{name}", sd)
 
@@ -126,3 +146,53 @@ def from_jax_variables(variables: dict) -> dict:
         k: torch.tensor(np.array(v, copy=True))
         for k, v in reference_state_dict(variables).items()
     }
+
+
+def load_flax_params(module: nn.Module, params: dict, batch_stats: dict | None = None,
+                     extra: dict | None = None) -> dict:
+    """A flax module's ``params`` (and ``batch_stats``; numpy leaves) as the
+    ``state_dict`` of the port's counterpart ``module``, whose submodules
+    carry the flax names: an ``nn.Linear`` takes ``kernel`` transposed and
+    ``bias``, an ``nn.Conv1d`` its (k, in, out) ``kernel`` as (out, in, k),
+    an ``nn.LayerNorm`` ``scale`` and ``bias``, an ``nn.Embedding``
+    ``embedding``, a BiLSTM, a PunishGAT and a MaskedBatchNorm their own
+    trees as the model's mapping lays them out; any other module's own
+    parameters and buffers are taken by name as they are. ``extra`` (port
+    names) supplies what the flax tree does not hold, as MCB's count-sketch
+    vectors. Ready for ``module.load_state_dict(..., strict=True)``."""
+    from dualvgr_tpu_torch.models.decoder import MaskedBatchNorm
+    from dualvgr_tpu_torch.models.encoders import BiLSTM
+    from dualvgr_tpu_torch.models.graph import PunishGAT
+
+    sd: dict = {}
+
+    def walk(mod, p, stats, prefix):
+        if isinstance(mod, nn.Linear):
+            _inv_linear(p, prefix[:-1], sd, bias=mod.bias is not None)
+        elif isinstance(mod, nn.Conv1d):
+            sd[prefix + "weight"] = np.asarray(p["kernel"]).transpose(2, 1, 0)
+            sd[prefix + "bias"] = np.asarray(p["bias"])
+        elif isinstance(mod, nn.LayerNorm):
+            sd[prefix + "weight"], sd[prefix + "bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+        elif isinstance(mod, nn.Embedding):
+            sd[prefix + "weight"] = np.asarray(p["embedding"])
+        elif isinstance(mod, BiLSTM):
+            _inv_lstm(p, prefix[:-1], sd)
+        elif isinstance(mod, PunishGAT):
+            _inv_gat(p, prefix[:-1], sd)
+        elif isinstance(mod, MaskedBatchNorm):
+            sd[prefix + "weight"], sd[prefix + "bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+            sd[prefix + "running_mean"] = np.asarray(stats["mean"])
+            sd[prefix + "running_var"] = np.asarray(stats["var"])
+            sd[prefix + "num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+        else:
+            for name, _ in list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False)):
+                if name in p:
+                    sd[prefix + name] = np.asarray(p[name])
+            for name, child in mod.named_children():
+                if next(iter(child.state_dict()), None) is not None:
+                    walk(child, p.get(name, {}), (stats or {}).get(name), f"{prefix}{name}.")
+
+    walk(module, params, batch_stats, "")
+    sd.update(extra or {})
+    return {k: torch.tensor(np.array(v, copy=True)) for k, v in sd.items()}

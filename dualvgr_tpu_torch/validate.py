@@ -29,7 +29,7 @@ import sys
 from dualvgr_tpu_torch import train_lib, validate_lib
 from dualvgr_tpu_torch.config import cfg_from_file, model_runtime_kwargs, resolve_dataset_paths
 from dualvgr_tpu_torch.models.dualvgr import build_model as build_dualvgr
-from dualvgr_tpu_torch.train import make_loader, require_gat
+from dualvgr_tpu_torch.train import make_loader
 from dualvgr_tpu_torch.utils.checkpoint import load_model_kwargs, restore_checkpoint
 from dualvgr_tpu_torch.utils.device import resolve_device
 from dualvgr_tpu_torch.utils.logging import colored, setup_logging
@@ -55,7 +55,6 @@ def run(cfg, unit_layers: int, *, device="cuda", feature_stores=None):
     # rebuild the model from the saved kwargs + fresh vocab + CLI
     # unit_layers (reference validate.py:281-284)
     kw = load_model_kwargs(ckpt_dir)
-    require_gat(kw.get("graph_module", "GAT"))
     if "unit_layers" in kw and kw["unit_layers"] != unit_layers:
         # common with reference checkpoints, which hold 2 banks whatever
         # the training flag (the reference trainer never forwards
@@ -72,6 +71,7 @@ def run(cfg, unit_layers: int, *, device="cuda", feature_stores=None):
         question_vocab_size=len(vocab["question_token_to_idx"]),
         num_answers=len(vocab["answer_token_to_idx"]),
         num_of_nodes=kw["num_of_nodes"],
+        graph_module=kw.get("graph_module", "GAT"),
         graph_layers=kw["graph_layers"],
         unit_layers=unit_layers,
         **runtime,

@@ -12,8 +12,11 @@ On the conftest ``synth_dir`` SVQA fixture, with ``--device cpu``:
   ``tpu.log_every`` steps and at each epoch's end;
 * with ``tpu.grad_accum: 2`` the logged lr is the JAX train.py's formula
   across the decay at epoch 10;
-* the data keys reach the loaders; ``graph_module: GCN``, the still
+* the data keys reach the loaders; an unknown ``graph_module``, the still
   unported ``tpu`` keys and a JAX ``prng_impl`` are refused;
+* a config without ``graph_module`` trains and validates the default GCN
+  model, records "GCN" in ``model_kwargs.json``, and the export and the
+  HTTP front's checkpoint loader build the GCN from it;
 * ``main()`` without ``--device`` raises on a machine without CUDA.
 """
 
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from dualvgr_tpu.train_lib import make_lr_schedule as jax_lr_schedule
+from dualvgr_tpu_torch import export as texport
 from dualvgr_tpu_torch import train as ttrain
 from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
@@ -81,6 +85,33 @@ def test_train_then_validate_cli(synth_dir, tmp_path, capsys):
     assert len(preds) == 15 and set(preds[0]) == {"video_id", "question_id", "video_name", "question", "answer",
                                                   "prediction"}
     assert acc == pytest.approx(np.mean([p["answer"] == p["prediction"] for p in preds]))
+
+
+def test_a_config_without_graph_module_trains_the_default_gcn(synth_dir, tmp_path, capsys):
+    path = write_cfg(synth_dir, str(tmp_path), max_epochs=1)
+    lines = open(path).read().splitlines()
+    kept = [ln for ln in lines if not ln.startswith("graph_module")]
+    assert len(kept) == len(lines) - 1
+    with open(path, "w") as f:
+        f.write("\n".join(kept) + "\n")
+    _, state = ttrain.main(["--cfg", path, "--alpha", "1", "--beta", "1e-8", "--unit_layers", "1",
+                            "--device", "cpu"])
+    assert type(state.model.visual_input_unit.acGCN[0]).__name__ == "PunishGCN"
+    ckpt = tmp_path / "results" / "expSynth-svqa" / "ckpt" / "model"
+    assert json.load(open(ckpt / "model_kwargs.json"))["graph_module"] == "GCN"
+    assert "visual_input_unit.acGCN.0.gc1.weight" in torch.load(ckpt / "state.pt")["state_dict"]
+    acc = tvalidate.main(["--cfg", path, "--unit_layers", "1", "--device", "cpu"])
+    assert "Test Accuracy" in capsys.readouterr().out and 0.0 <= acc <= 1.0
+    # the deployment path builds the saved module: the HTTP front's loader and the export
+    cfg = cfg_from_file(path)
+    cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+    model, _ = texport.model_from_checkpoint(cfg, 1, device="cpu")
+    assert type(model.visual_input_unit.acGCN[0]).__name__ == "PunishGCN"
+    meta = texport.main(["--cfg", path, "--out", str(tmp_path / "gcn.dvgr"), "--max-batch", "4",
+                         "--platforms", "cpu"])
+    ops = texport.graph_ops(texport.load_artifact(str(tmp_path / "gcn.dvgr"), "cpu")[0].program)
+    assert meta["platforms"] == ["cpu"] and ops["dualvgr_torch.bilstm_recurrence.default"] == 3
+    assert ops["dualvgr_torch.gat_cycle.default"] == 0
 
 
 def test_preemption_autosave_and_resume(synth_dir, tmp_path):
@@ -146,7 +177,7 @@ def test_data_keys_reach_the_loaders(synth_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("section,key,value,error", [
-    (None, "graph_module", "GCN", ValueError),
+    (None, "graph_module", "BOGUS", ValueError),
     ("tpu", "mesh_axis", "model", NotImplementedError),
     ("tpu", "tensor_parallel", 2, NotImplementedError),
     ("tpu", "zero_opt", True, NotImplementedError),
@@ -155,7 +186,7 @@ def test_data_keys_reach_the_loaders(synth_dir, tmp_path, monkeypatch):
 def test_clis_refuse_what_the_port_does_not_build(synth_dir, tmp_path, section, key, value, error):
     cfg = cli_cfg(synth_dir, tmp_path)
     (cfg[section] if section else cfg)[key] = value
-    match = "ROADMAP.md, queue 1, item 3" if key == "graph_module" else f"tpu.{key}"
+    match = "unknown graph_module" if key == "graph_module" else f"tpu.{key}"
     with pytest.raises(error, match=match):
         ttrain.train(cfg, device="cpu")
     assert not os.path.exists(os.path.join(cfg.dataset.save_dir, "ckpt"))

@@ -15,7 +15,9 @@ only where the fp32 top-2 logit margin is within 2 delta. The port's
 graph must hold the kernels' custom ops (three ``bilstm_recurrence``, two
 ``gat_cycle``, and one ``input_proj_both`` under bf16) and no plain
 version of them: no LeakyReLU (the graph cycle's attention) and no
-``chunk`` (the LSTM cell), so the plain path is not baked in.
+``chunk`` (the LSTM cell), so the plain path is not baked in. A GCN model's
+artifact (``graph_module: GCN``) holds the three ``bilstm_recurrence``
+nodes and no ``gat_cycle``, and matches the JAX package's GCN artifact.
 """
 
 import numpy as np
@@ -38,7 +40,8 @@ KW = dict(
 B, C, F, T, K = 4, 4, 3, 5, 3
 TOL_BF16_LOGITS = 5e-2
 KERNEL_OPS = {"float32": {"bilstm_recurrence": 3, "gat_cycle": 2},
-              "bfloat16": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_both": 1}}
+              "bfloat16": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_both": 1},
+              "GCN": {"bilstm_recurrence": 3}}
 PLAIN_SIGNATURES = ("aten.leaky_relu.default", "aten.chunk.default")
 
 
@@ -53,9 +56,9 @@ def batch(seed=3):
     return app, mot, q, qlen
 
 
-def jax_side(tmp_path):
+def jax_side(tmp_path, graph_module="GAT"):
     """(flax model, variables, the JAX artifact's predict fn)."""
-    model = JaxDualVGR(**KW)
+    model = JaxDualVGR(**KW, graph_module=graph_module)
     variables = random_variables(model, batch())
     payload, meta = jax_export.export_serving(
         model, variables, max_batch=B, app_shape=(C, F, KW["vision_dim"]), mot_shape=(C, KW["vision_dim"]),
@@ -66,33 +69,42 @@ def jax_side(tmp_path):
     return model, variables, jax_export.load_artifact(path)[0], path
 
 
-def port_artifact(tmp_path, variables, compute_dtype="float32"):
+def port_artifact(tmp_path, variables, compute_dtype="float32", graph_module="GAT"):
     """(port model, artifact path, meta) for the CPU, kernel routing on."""
-    model = build_model(device="cpu", compute_dtype=compute_dtype, **KW)
+    model = build_model(device="cpu", compute_dtype=compute_dtype, graph_module=graph_module, **KW)
     model.load_state_dict(from_jax_variables(variables))
     payload, meta = texport.export_serving(
         model, max_batch=B, app_shape=(C, F, KW["vision_dim"]), mot_shape=(C, KW["vision_dim"]), max_q_len=T,
         top_k=K, platforms=("cpu",),
     )
-    path = str(tmp_path / f"port_{compute_dtype}.dvgr")
+    path = str(tmp_path / f"port_{graph_module}_{compute_dtype}.dvgr")
     texport.save_artifact(path, payload, meta)
     return model, path, meta
 
 
-def check_graph(path, compute_dtype):
+def check_graph(path, kind):
+    """``kind``: a compute dtype of the GAT model, or "GCN"."""
     ops = texport.graph_ops(texport.load_artifact(path, "cpu")[0].program)
-    want = {f"dualvgr_torch.{k}.default": n for k, n in KERNEL_OPS[compute_dtype].items()}
+    want = {f"dualvgr_torch.{k}.default": n for k, n in KERNEL_OPS[kind].items()}
     assert {k: ops[k] for k in want} == want, ops
     assert sum(n for k, n in ops.items() if k.startswith("dualvgr_torch.")) == sum(want.values()), ops
     assert not any(ops[s] for s in PLAIN_SIGNATURES), {s: ops[s] for s in PLAIN_SIGNATURES}
 
 
 def test_fp32_artifact_matches_live_and_jax_artifact(tmp_path):
-    _, variables, jax_predict, _ = jax_side(tmp_path)
-    model, path, meta = port_artifact(tmp_path, variables)
+    fp32_artifact_case(tmp_path, "GAT")
+
+
+def test_gcn_artifact_matches_live_and_jax_artifact(tmp_path):
+    fp32_artifact_case(tmp_path, "GCN")
+
+
+def fp32_artifact_case(tmp_path, graph_module):
+    _, variables, jax_predict, _ = jax_side(tmp_path, graph_module)
+    model, path, meta = port_artifact(tmp_path, variables, graph_module=graph_module)
     assert meta["platforms"] == ["cpu"] and meta["max_batch"] == B and meta["top_k"] == K
     assert meta["app_shape"] == [C, F, KW["vision_dim"]] and meta["mot_shape"] == [C, KW["vision_dim"]]
-    check_graph(path, "float32")
+    check_graph(path, "float32" if graph_module == "GAT" else graph_module)
 
     predict, loaded_meta = texport.load_artifact(path, device="cpu")
     assert loaded_meta == meta

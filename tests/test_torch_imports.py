@@ -2,8 +2,8 @@
 
 * Importing every module of ``dualvgr_tpu_torch`` (the bf16 streaming and
   projection modules, the port's probe, the data layer, the CLIs,
-  validation and checkpoints, the export, the HTTP front, the tokenizer
-  and the checkpoint interchange included) and ``chip_smoke`` loads none
+  validation and checkpoints, the export, the HTTP front, the tokenizer,
+  the checkpoint interchange, the FLOP count and the zoos included) and ``chip_smoke`` loads none
   of jax, flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
   ``preprocess``, ``nltk``, ``h5py`` or ``ml_dtypes``, and runs no CLI's
   ``main``.
@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
         for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe", "data.vocab", "data.features",
                   "data.loader", "data.check", "parallel.mesh", "train", "validate", "validate_lib",
                   "utils.checkpoint", "utils.logging", "export", "serve", "data.questions",
-                  "utils.port_reference"):
+                  "utils.port_reference", "utils.flops", "models.graph_zoo", "models.attention_zoo",
+                  "models.utils_zoo", "models.fusions"):
             assert "dualvgr_tpu_torch." + m in mods, m
         assert len(mods) >= 30, mods
         # importing the CLIs runs no main: nothing was trained or logged

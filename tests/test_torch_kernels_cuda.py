@@ -244,6 +244,40 @@ def test_model_kernel_path_matches_plain_path(rs, cuda, unit_layers, graph_layer
         assert (a - r).abs().max().item() <= 1e-3 * max(1.0, r.abs().max().item()), field
 
 
+@pytest.mark.parametrize("nodes,graph_layers", [(32, 1), (6, 2)])
+def test_gcn_model_builds_and_launches_kernel_1_only(rs, cuda, nodes, graph_layers):
+    """A GCN model builds on the card with 32 nodes (the graph-cycle limits
+    bind the GAT module only); its forward launches kernel 1 three times and
+    kernel 2 never, and matches its plain path."""
+    model = build_model(device=cuda, vision_dim=64, module_dim=64, word_dim=16, question_vocab_size=40,
+                        num_answers=30, num_of_nodes=nodes, graph_layers=graph_layers, unit_layers=2,
+                        graph_module="GCN")
+    b, t = 5, 9
+    app, mot = _t(rs, cuda, b, nodes, 4, 64), _t(rs, cuda, b, nodes, 64)
+    qlen = torch.from_numpy(rs.randint(1, t + 1, (b,)).astype(np.int32)).to(cuda)
+    q = torch.from_numpy(rs.randint(1, 40, (b, t)).astype(np.int32)).to(cuda)
+    n0 = (lstm_kernel.bilstm_recurrence.launches, gat_kernel.gat_cycle.launches)
+    got = model(app, mot, q, qlen)
+    torch.cuda.synchronize()
+    assert (lstm_kernel.bilstm_recurrence.launches - n0[0], gat_kernel.gat_cycle.launches - n0[1]) == (3, 0)
+    model.use_kernels = False
+    want = model(app, mot, q, qlen)
+    for field in got._fields:
+        a, r = getattr(got, field), getattr(want, field)
+        assert a.device.type == "cuda" and torch.isfinite(a).all(), field
+        assert (a - r).abs().max().item() <= 1e-3 * max(1.0, r.abs().max().item()), field
+
+
+def test_zoo_runs_on_cuda_tensors(cuda):
+    """Every class of the zoos on CUDA tensors matches the same module on the
+    CPU, and no torch function returns a CPU tensor on the way
+    (``bench/zoo_check.py``)."""
+    from dualvgr_tpu_torch.bench.zoo_check import CASES, TOL, check_zoo
+
+    errs = check_zoo(cuda)
+    assert sorted(errs) == sorted(CASES) and max(errs.values()) <= TOL
+
+
 def _close(a, b, tol, name):
     assert a.shape == b.shape, name
     err = (a - b).abs().max().item()
