@@ -121,7 +121,31 @@ streaming path):
 17. zoo: every class of the zoos (decoder and question-encoder variants,
     graph, attention and model-utils zoos, fusions) once on CUDA tensors at
     a small width against the same module on the CPU, within 1e-5 of the
-    largest output, no CPU tensor made on the way (``bench/zoo_check.py``).
+    largest output, no CPU tensor made on the way (``bench/zoo_check.py``);
+18. extract, extract bf16 (after proj): ResNet-101 at 224^2 on 1024 frames
+    (4 videos x 16 clips x 16 frames) and ResNeXt-101 3D on 64 clips of 16
+    x 112^2, seeded weights and pixels: ms, frames/s, clips/s, videos/s,
+    the analytic GFLOP per frame and clip (``utils/flops.py``), TFLOP/s
+    and the bound at the fp32 (no TF32) or bf16 peak; the fp32 features of
+    the first 8 frames and 4 clips against the port on the CPU (1e-4 x
+    max|ref|); bf16 against fp32 (relative norm error < 0.02, per-row
+    cosine > 0.995); each grouped conv shape of the motion network as
+    cuDNN's grouped conv and as a dense conv with the block-diagonal
+    weight, in turns (within 1e-4 x max|ref| in fp32, one bf16 step of it
+    in bf16);
+19. native gather (the end of phase cli): a batch of 256 appearance rows
+    of phase cli's store gathered into one pinned tensor by the native
+    gather at 1, 2, 4 and 8 threads and by ``torch.index_select``, in
+    turns, bit-equal; the batch's fp32 -> bf16 cast, native against torch;
+    the training epoch through the loader with ``num_workers`` 8 against
+    the index_select gather, in turns;
+20. predict (after cli bf16): 8 videos of seeded uint8 frames (96 of 240 x
+    320) and a question each through ``predict.predict_frames`` (resize on
+    the card, both fp32 backbones, one DualVGR forward of phase cli's
+    checkpoint): kernel 1 three times and kernel 2 twice in that run, the
+    logits against the plain path on the same features, the top 5, and
+    the ms of each stage (resize, appearance, motion, DualVGR) and of the
+    whole per video.
 
 Kernels 1, 3 and 4 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
 shape, their launch plan (cluster size, the clusters the card keeps
@@ -133,8 +157,9 @@ its registers and spills as ptxas reported them; at the appearance shape,
 the SM clock, power draw and power limit that ``nvidia-smi`` reads while
 kernel 1 or 3 runs back to back.
 Then one JSON line with the kernel table (with each row's launches in
-the GCN phases, ``launches_gcn*``, and kernel 2's in the stacked model's
-kernel eval, ``launches_batch_gats_eval``) and, last, the device line. Any
+the GCN phases, ``launches_gcn*``, kernel 2's in the stacked model's
+kernel eval, ``launches_batch_gats_eval``, and kernels 1 and 2's in phase
+predict, ``launches_predict``) and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
 port's own seeded init. TF32 is switched off for matmuls and for cuDNN, so
 the fp32 paths, the plain versions and the yardsticks are fp32.
@@ -165,12 +190,13 @@ from dualvgr_tpu_torch import (
 )
 from dualvgr_tpu_torch import train as ttrain
 from dualvgr_tpu_torch import validate as tvalidate
-from dualvgr_tpu_torch.bench import proj_probe
+from dualvgr_tpu_torch import predict as tpredict
+from dualvgr_tpu_torch.bench import extraction_bench, proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
 from dualvgr_tpu_torch.bench.zoo_check import TOL as TOL_ZOO
 from dualvgr_tpu_torch.bench.zoo_check import check_zoo
 from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
-from dualvgr_tpu_torch.data import FeatureStore
+from dualvgr_tpu_torch.data import FeatureStore, native
 from dualvgr_tpu_torch.data.questions import encode_tokens, tokenize_question
 from dualvgr_tpu_torch.data.vocab import load_vocab
 from dualvgr_tpu_torch.export import export_serving, graph_ops, load_artifact, model_from_checkpoint, save_artifact
@@ -191,6 +217,9 @@ from dualvgr_tpu_torch.ops.proj_kernel import (
     tanh_to_bf16_reference,
 )
 from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+from dualvgr_tpu_torch.preprocess.features import (
+    build_appearance_extractor, build_motion_extractor, clips_from_frames,
+)
 from dualvgr_tpu_torch import serve as tserve
 from dualvgr_tpu_torch.serving import Request, ServingProgram
 from dualvgr_tpu_torch.train import model_kwargs_tosave
@@ -1564,9 +1593,96 @@ def phase_cli(root, model_ms):
         h2d_ms_per_batch=f"{copy_app + copy_mot:.3f}", h2d_gb_per_s=f"{(bytes_app + bytes_mot) / (copy_app + copy_mot) / 1e6:.2f}",
         batch_mb=f"{(bytes_app + bytes_mot) / 1e6:.1f}", cpu_count=os.cpu_count(),
         h5py_importable=importlib.util.find_spec("h5py") is not None)
+    phase_native_gather(cfg, state, stores)
     del state
     torch.cuda.empty_cache()
     return raw, all_stores, launches, val_launches, accs, preds, first
+
+
+class IndexSelectStore(FeatureStore):
+    """A cached store that gathers as the loader did before the native
+    gather: one ``torch.index_select`` into the pinned batch (the gather's
+    plain version)."""
+
+    @classmethod
+    def of(cls, store):
+        self = cls.__new__(cls)
+        self.__dict__.update(store.__dict__)
+        return self
+
+    def gather(self, rows, out=None, n_threads=None):
+        return native.gather_rows_reference(self._cache, rows, out=out)
+
+
+GATHER_THREADS = (1, 2, 4, 8)
+
+
+def in_turns(variants, reps=3):
+    """Host ms of each of ``variants`` ({name: fn}) over ``reps`` calls
+    after one warm-up, in turns: the order forward, then backward."""
+    times = {k: [] for k in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for k in order:
+            variants[k]()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                variants[k]()
+            times[k].append((time.perf_counter() - t0) / reps * 1e3)
+    return times
+
+
+def phase_native_gather(cfg, state, stores):
+    """Phase ``native gather``: on phase cli's flagship-sized fp32 store, a
+    batch of 256 appearance rows gathered into one pinned tensor by the
+    native gather at 1, 2, 4 and 8 threads and by ``torch.index_select``,
+    in turns, each result checked bit-equal; the per-batch fp32 -> bf16
+    cast, native against torch; and the training epoch through the loader
+    with ``num_workers`` 8 (native) against the loader's gather before it
+    (index_select), in turns (plain, native, native, plain)."""
+    t_phase = time.perf_counter()
+    src = stores[0]._cache
+    rows = np.random.RandomState(3).randint(0, CLI_VIDEOS, BATCH)
+    pinned = torch.empty((BATCH, *src.shape[1:]), dtype=src.dtype, pin_memory=True)
+    want = native.gather_rows_reference(src, rows)
+
+    def checked(fn):
+        def run():
+            fn()
+            check(torch.equal(pinned, want), "a gather into the pinned batch differs from index_select")
+        return run
+
+    variants = {"index_select": lambda: native.gather_rows_reference(src, rows, out=pinned)}
+    variants.update({f"native_{t}": (lambda t=t: native.gather_rows(src, rows, out=pinned, n_threads=t))
+                     for t in GATHER_THREADS})
+    for fn in variants.values():
+        checked(fn)()
+    gather = in_turns(variants)
+
+    out16 = torch.empty(pinned.shape, dtype=torch.bfloat16, pin_memory=True)
+    want16 = pinned.to(torch.bfloat16)
+    native.cast_f32_to_bf16(pinned, out=out16)
+    check(torch.equal(out16.view(torch.int16), want16.view(torch.int16)), "the native cast differs from torch's")
+    cast = in_turns({"torch": lambda: out16.copy_(pinned), "native_8": lambda: native.cast_f32_to_bf16(
+        pinned, out=out16, n_threads=8)})
+
+    loaders = {}
+    for name, wrap, workers in (("index_select", IndexSelectStore.of, 0), ("native_8", lambda st: st, 8)):
+        c = copy.deepcopy(cfg)
+        c.num_workers = workers
+        loaders[name] = ttrain.make_loader(c, c.dataset.train_question_pt, shuffle=False, device="cuda",
+                                           feature_stores=tuple(wrap(st) for st in stores))
+    epochs = {k: [] for k in loaders}
+    for name in ("index_select", "native_8", "native_8", "index_select"):
+        epochs[name].append(timed_s(lambda: epoch_through(state, host_batches(loaders[name]), cfg)))
+    loader_gather = {k: host_copy_ms(ld, ld.app_store)[0] for k, ld in loaders.items()}
+    fmt = lambda v: "/".join(f"{x:.3f}" for x in v)  # noqa: E731
+    say("native gather", seconds=f"{time.perf_counter() - t_phase:.1f}", batch=BATCH,
+        batch_mb=f"{pinned.numel() * 4 / 1e6:.1f}", cpu_count=os.cpu_count(), bit_equal=True,
+        **{f"gather_ms_{k}": fmt(v) for k, v in gather.items()},
+        **{f"cast_ms_{k}": fmt(v) for k, v in cast.items()},
+        **{f"epoch_s_{k}": fmt(v) for k, v in epochs.items()},
+        **{f"loader_gather_app_ms_{k}": f"{v:.3f}" for k, v in loader_gather.items()},
+        parent_recorded="epoch 361 ms, gather 49.77 ms a batch (PERF.md, not measured by this run)")
 
 
 def phase_cli_bf16(raw, all_stores, accs, preds, first, model_ms):
@@ -2000,6 +2116,165 @@ def phase_zoo():
         seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# phase extract: 4 videos x 16 clips x 16 frames, and their 64 clips;
+# the CPU reference on the first 8 frames and 4 clips
+EXTRACT_VIDEOS = 4
+EXTRACT_FRAMES, EXTRACT_CLIPS = EXTRACT_VIDEOS * CLIPS * FRAMES, EXTRACT_VIDEOS * CLIPS
+EXTRACT_CPU_FRAMES, EXTRACT_CPU_CLIPS = 8, 4
+#   fp32 features on the card (TF32 off) against the port's CPU fp32: only
+#   the conv sum order differs -> 1e-4 x max|ref|
+#   bf16 against fp32: the JAX package's own limits
+#   (tests/test_preprocess_e2e.py:180-185)
+TOL_EXTRACT = 1e-4
+BF16_FEAT_REL_NORM, BF16_FEAT_COS = 0.02, 0.995
+#   one grouped conv, grouped against block-diagonal: fp32 sums in another
+#   order -> 1e-4 x max|ref|; bf16 outputs of such sums may round one bf16
+#   step apart -> 2^-8 x max|ref|
+TOL_GROUPED_AB = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+# phase predict: 8 videos of 96 decoded 240 x 320 frames, one question each
+PREDICT_VIDEOS, PREDICT_FRAMES, PREDICT_HW = 8, 96, (240, 320)
+
+
+def feature_agreement(got, ref):
+    """(relative norm error, the least per-row cosine) of ``got`` against
+    ``ref`` (rows of features)."""
+    got, ref = got.double(), ref.double()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+    return rel, cos
+
+
+def phase_extract():
+    """Phases ``extract`` and ``extract bf16``: ResNet-101 at 224^2 on 1024
+    frames and ResNeXt-101 3D on 64 clips of 16 x 112^2 (seeded weights and
+    pixels): ms, frames/s, clips/s, videos/s, the analytic GFLOP per frame
+    and clip, TFLOP/s and the bound at the dtype's peak; fp32 on the card
+    against the CPU on the first frames and clips, bf16 against fp32; each
+    grouped conv shape grouped and block-diagonal. Returns the fp32
+    extractors."""
+    frames, clips = extraction_bench.seeded_inputs(EXTRACT_FRAMES, EXTRACT_CLIPS, seed=9)
+    t_phase = time.perf_counter()
+    ref_a = build_appearance_extractor(device="cpu")(frames[:EXTRACT_CPU_FRAMES].cpu())
+    ref_m = build_motion_extractor(device="cpu")(clips[:EXTRACT_CPU_CLIPS].cpu())
+    cpu_s = time.perf_counter() - t_phase
+    fp32 = None
+    for dt in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        tag = "extract" if dt == "float32" else "extract bf16"
+        app_x, mot_x = build_appearance_extractor(compute_dtype=dt), build_motion_extractor(compute_dtype=dt)
+        feats = app_x(frames), mot_x(clips)
+        torch.cuda.synchronize()
+        for f, n in zip(feats, (EXTRACT_FRAMES, EXTRACT_CLIPS)):
+            check(f.dtype == torch.float32 and tuple(f.shape) == (n, 2048), f"{tag}: features {f.dtype} {f.shape}")
+            check(torch.isfinite(f).all().item(), f"{tag}: non-finite features")
+        extra = {}
+        if dt == "float32":
+            fp32 = (app_x, mot_x), feats
+            for name, got, ref in (("app", feats[0][:EXTRACT_CPU_FRAMES], ref_a),
+                                   ("mot", feats[1][:EXTRACT_CPU_CLIPS], ref_m)):
+                err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+                check(err <= TOL_EXTRACT, f"{tag}: {name} features on the card against the CPU: {err:.3e} of max|ref|")
+                extra[f"{name}_rel_err_vs_cpu"] = f"{err:.3e}"
+            extra["cpu_reference_s"] = f"{cpu_s:.2f}"
+        else:
+            for name, got, ref in (("app", feats[0], fp32[1][0]), ("mot", feats[1], fp32[1][1])):
+                rel, cos = feature_agreement(got, ref)
+                check(rel < BF16_FEAT_REL_NORM and cos > BF16_FEAT_COS,
+                      f"{tag}: {name} against fp32: relative norm error {rel:.4f}, least cosine {cos:.5f}")
+                extra[f"{name}_rel_norm_vs_fp32"], extra[f"{name}_min_cos_vs_fp32"] = f"{rel:.2e}", f"{cos:.6f}"
+        del feats
+        r = extraction_bench.measure(dt, frames, clips, iters=3, app_extract=app_x, mot_extract=mot_x)
+        ab = extraction_bench.grouped_ab(dt, EXTRACT_CLIPS)
+        say(tag, frames=EXTRACT_FRAMES, clips=EXTRACT_CLIPS, seconds=f"{time.perf_counter() - t0:.1f}",
+            app_ms=f"{r['app_ms']:.3f}", frames_per_s=f"{r['frames_per_s']:.1f}",
+            app_tflop_per_s=f"{r['app_tflop_per_s']:.2f}", app_bound_ms=f"{r['app_bound_ms']:.3f}",
+            app_gflop_per_frame=f"{r['app_gflop_per_frame']:.4f}",
+            mot_ms=f"{r['mot_ms']:.3f}", clips_per_s=f"{r['clips_per_s']:.1f}",
+            mot_tflop_per_s=f"{r['mot_tflop_per_s']:.2f}", mot_bound_ms=f"{r['mot_bound_ms']:.3f}",
+            mot_gflop_per_clip=f"{r['mot_gflop_per_clip']:.4f}",
+            videos_per_s_appearance=f"{r['videos_per_s_appearance']:.2f}",
+            videos_per_s_motion=f"{r['videos_per_s_motion']:.2f}", videos_per_s=f"{r['videos_per_s']:.2f}",
+            **extra)
+        for row in ab:
+            check(row["rel_err"] <= TOL_GROUPED_AB[dt], f"{tag}: block-diagonal conv differs: {row}")
+            print(f"  grouped_ab C={row['channels']} stride={row['stride']} input={row['input']}: grouped "
+                  f"{'/'.join(f'{x:.3f}' for x in row['grouped_ms'])} ms, blockdiag "
+                  f"{'/'.join(f'{x:.3f}' for x in row['blockdiag_ms'])} ms, faster {row['faster']}, "
+                  f"rel_err {row['rel_err']:.2e}", flush=True)
+        del app_x, mot_x
+        torch.cuda.empty_cache()
+    return fp32[0]
+
+
+def phase_predict(raw, extractors):
+    """Phase ``predict``: 8 videos of seeded uint8 frames (96 of 240 x 320
+    each) and one question each through ``predict.predict_frames`` (the
+    clips resized on the card, both fp32 backbones, one DualVGR forward)
+    with the flagship GAT model restored from phase cli's checkpoint: the
+    launches of that run (kernel 1 three times and kernel 2 twice), the
+    logits against the plain path on the same features, the top 5, and
+    each stage's ms (resize, appearance, motion, DualVGR) and the whole
+    per video."""
+    t_phase = time.perf_counter()
+    cfg = copy.deepcopy(raw)
+    cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+    model, vocab = model_from_checkpoint(cfg, 1)
+    app_x, mot_x = extractors
+    rng = np.random.RandomState(11)
+    videos = [rng.randint(0, 256, (PREDICT_FRAMES, *PREDICT_HW, 3), dtype=np.uint8) for _ in range(PREDICT_VIDEOS)]
+    questions = [f"{BUCKET_WORDS[i % len(BUCKET_WORDS)]} is word{100 + 7 * i} doing with word{200 + i}?"
+                 for i in range(PREDICT_VIDEOS)]
+    kw = dict(model=model, vocab=vocab, app_extract=app_x, mot_extract=mot_x, num_clips=CLIPS, device="cuda")
+    tpredict.predict_frames(videos[:1], questions[:1], **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = tpredict.predict_frames(videos, questions, **kw)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    check(launches == EVAL_LAUNCHES["float32"], f"predict launched {launches}, want {EVAL_LAUNCHES['float32']} "
+                                                f"(one DualVGR forward)")
+    check(tuple(logits.shape) == (PREDICT_VIDEOS, FLAGSHIP["num_answers"]) and torch.isfinite(logits).all().item(),
+          f"predict logits {tuple(logits.shape)}")
+
+    feats = [tpredict.video_features(v, app_x, mot_x, CLIPS) for v in videos]
+    app, mot = torch.stack([a for a, _ in feats]), torch.stack([m for _, m in feats])
+    q, qlen = tpredict.encode_questions(questions, vocab)
+    model.use_kernels = False
+    ref = tpredict.answer_logits(model, app, mot, q, qlen)
+    model.use_kernels = True
+    scale = ref.abs().max().item()
+    err = max_err(logits, ref)
+    check(err <= TOL_LOGITS * scale, f"predict logits against the plain path: {err:.3e} > {TOL_LOGITS} * {scale:.3e}")
+    check(torch.equal(logits.argmax(-1), ref.argmax(-1)), "predict: an argmax differs from the plain path's")
+    top = tpredict.top_answers(logits.cpu().numpy(), vocab["answer_idx_to_token"], TOP_K)
+
+    v0 = videos[0]
+
+    def resize():
+        on_card = torch.as_tensor(v0).cuda()  # the uint8 frames' copy, as video_features makes it
+        return (clips_from_frames(on_card, CLIPS, FRAMES, (224, 224), False),
+                clips_from_frames(on_card, CLIPS, FRAMES, (112, 112), True))
+
+    resize_ms = time_ms(resize, 3)
+    clips_a = clips_from_frames(v0, CLIPS, FRAMES, (224, 224), False).reshape(CLIPS * FRAMES, 3, 224, 224)
+    clips_m = clips_from_frames(v0, CLIPS, FRAMES, (112, 112), True)
+    app_ms = time_ms(lambda: app_x(clips_a), 3)
+    mot_ms = time_ms(lambda: mot_x(clips_m), 3)
+    dualvgr_ms = time_ms(lambda: tpredict.answer_logits(model, app, mot, q, qlen), 5)
+    say("predict", videos=PREDICT_VIDEOS, frames_per_video=PREDICT_FRAMES, frame_hw="x".join(map(str, PREDICT_HW)),
+        seconds=f"{time.perf_counter() - t_phase:.1f}",
+        launches_per_forward=f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]}",
+        logits_max_abs_err=f"{err:.3e}", max_abs_logit=f"{scale:.3e}", argmax_equal=True,
+        resize_ms=f"{resize_ms:.3f}", appearance_ms=f"{app_ms:.3f}", motion_ms=f"{mot_ms:.3f}",
+        dualvgr_ms=f"{dualvgr_ms:.3f}", per_video_ms=f"{whole_ms / PREDICT_VIDEOS:.3f}",
+        whole_ms=f"{whole_ms:.3f}", video0_top5=",".join(f"{a}:{p:.4f}" for a, p in top[0]))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, cases, per, library, side_cases=(), peak=PEAK_FP32_FLOPS,
                  **extra):
     """One row of the kernels line: the sums over the cases of one step or
@@ -2067,9 +2342,12 @@ def main():
     torch.cuda.empty_cache()
     k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
     torch.cuda.empty_cache()
+    extractors = phase_extract()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
         cli_bf16 = phase_cli_bf16(raw, stores, accs, preds, first, model_ms)
+        predict_launches = phase_predict(raw, extractors)
+        del extractors
         http_launches = phase_http(root, raw, stores["float32"], preds, export_path)
         gcn["gcn cli train"], gcn["gcn cli validate"], gcn["gcn serve"] = phase_gcn_cli(root, stores["float32"])
         del stores
@@ -2109,13 +2387,14 @@ def main():
                      f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
                      "bf16-gate shapes", library=True, side_cases=lstm_bf16,
                      launches_bf16=serve_bf16_launches[0], **cli_launches(0), **deploy_launches(0),
-                     **gcn_launches(0)),
+                     **gcn_launches(0), launches_predict=predict_launches[0]),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
                      "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
                      "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
                      f"forward too); *_b{SERVE_BATCH}: the same streams' first {SERVE_BATCH} videos (a served "
                      "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1],
-                     **cli_launches(1), **deploy_launches(1), **gcn_launches(1)),
+                     **cli_launches(1), **deploy_launches(1), **gcn_launches(1),
+                     launches_predict=predict_launches[1]),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "

@@ -126,8 +126,8 @@ def default_config() -> Config:
 
 
 # tpu keys that parse but that no code of the port reads yet: a value other
-# than the default is refused by ``model_runtime_kwargs`` (ROADMAP.md, queue
-# 1, item 4: multi-device). The data and CLI keys are read by the train
+# than the default is refused by ``model_runtime_kwargs`` (multi-device, not
+# ported yet (ROADMAP.md)). The data and CLI keys are read by the train
 # and validate CLIs (``dualvgr_tpu_torch/train.py``, ``validate.py``).
 UNHONOURED_TPU_KEYS = ("mesh_axis", "tensor_parallel", "zero_opt")
 

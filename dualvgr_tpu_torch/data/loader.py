@@ -24,10 +24,12 @@ straight into pinned (page-locked) tensors, which the card copies from
 asynchronously (``parallel.mesh.prefetch_to_device``); the CLIs set it
 when the device is CUDA. ``appearance_feat`` and ``motion_feat`` take a
 path or a ``FeatureStore``. A failure in the producer is raised in the
-consumer (the JAX loader ends the epoch early instead). The JAX loader's
-``num_workers`` (the gather's thread count there) is not taken: torch's
-intra-op thread pool runs the gather. Host-sharded loading (its
-``host_index``/``host_count``) is not ported yet (ROADMAP item 4).
+consumer (the JAX loader ends the epoch early instead). ``num_workers``
+(the reference's forked workers) is, as in the JAX loader, the thread count
+of the native row gather (``data/native.py``; 0: ``min(cpus, 8)``), which
+fills each pinned batch. Host-sharded loading (the JAX loader's
+``host_index``/``host_count``) belongs to multi-device, not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,6 +81,9 @@ class VideoQADataLoader:
         motion_feat: str | FeatureStore,
         batch_size: int,
         shuffle: bool,
+        # reference-CLI compat (DataLoader.py:165 forked torch workers):
+        # the native row gather's thread count (0 = auto)
+        num_workers: int = 0,
         train_num: int = 0,
         val_num: int = 0,
         test_num: int = 0,
@@ -127,11 +132,13 @@ class VideoQADataLoader:
 
         self.transfer_dtype = transfer_dtype
         self._feat_dtype = _store_dtype(transfer_dtype)
+        self.gather_threads = num_workers if num_workers > 0 else None
 
         def store(src, name):
             if isinstance(src, FeatureStore):
                 return src
-            return FeatureStore(src, name, cache_gb=feature_cache_gb, store_dtype=transfer_dtype)
+            return FeatureStore(src, name, cache_gb=feature_cache_gb, store_dtype=transfer_dtype,
+                                n_threads=self.gather_threads)
 
         self.app_store = store(appearance_feat, "resnet_features")
         self.motion_store = store(motion_feat, "resnext_features")
@@ -179,8 +186,8 @@ class VideoQADataLoader:
         ``pin_memory``. A store of another dtype (one handed in) is cast."""
         out = torch.empty((len(rows), *st.shape[1:]), dtype=self._feat_dtype, pin_memory=self.pin_memory)
         if st.out_dtype == self._feat_dtype:
-            return st.gather(rows, out=out)
-        return out.copy_(st.gather(rows))
+            return st.gather(rows, out=out, n_threads=self.gather_threads)
+        return out.copy_(st.gather(rows, n_threads=self.gather_threads))
 
     def _make_batch(self, idx: np.ndarray, valid: np.ndarray) -> Batch:
         return Batch(

@@ -1,1 +1,1 @@
-"""Moving batches to the device (one device; multi-device is ROADMAP item 4)."""
+"""Moving batches to the device (one device; multi-device, not ported yet (ROADMAP.md))."""

@@ -2,7 +2,8 @@
 
 The port's counterpart of the JAX package's ``parallel/mesh.py``. So far it
 holds the one-device form of ``prefetch_to_device`` (the JAX package's
-``mesh.py:154``); the data-parallel mesh is ROADMAP item 4.
+``mesh.py:154``); the data-parallel mesh belongs to multi-device, not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

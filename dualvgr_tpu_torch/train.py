@@ -85,6 +85,7 @@ def make_loader(cfg, question_pt, *, shuffle, device, feature_stores=None, **num
         motion_feat=motion,
         batch_size=cfg.train.batch_size,
         shuffle=shuffle,
+        num_workers=cfg.num_workers,
         seed=cfg.seed,
         feature_cache_gb=cfg.tpu.feature_cache_gb,
         prefetch=cfg.tpu.prefetch,

@@ -13,6 +13,10 @@ untransposed: the reference's GraphConvolution weight is an (in, out)
 parameter used as ``x @ W``, not a Linear. (The JAX package's own inverse
 mapping reads GAT banks only.)
 
+``backbone_from_flax`` (as ``resnet101_from_flax`` and
+``resnext101_from_flax``) carries the flax variables of the JAX package's
+feature-extraction backbones and 3D CNN zoo onto the port's.
+
 ``load_flax_params`` carries a flax module's params onto the port's
 counterpart of any module of the zoos (``models/{decoder,encoders,
 graph_zoo,attention_zoo,utils_zoo,fusions}.py``), whose submodules carry
@@ -196,3 +200,44 @@ def load_flax_params(module: nn.Module, params: dict, batch_stats: dict | None =
     walk(module, params, batch_stats, "")
     sd.update(extra or {})
     return {k: torch.tensor(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+def backbone_from_flax(variables: dict) -> dict:
+    """Flax variables of a backbone of the JAX package (``ResNet101``,
+    ``ResNeXt101_3D``, the 3D CNN zoo; numpy leaves: HWIO or DHWIO conv
+    kernels, BatchNorm scale and bias with the batch stats' mean and var,
+    blocks ``layer{s}_{b}``) -> the state_dict of the port's counterpart
+    (OIHW or OIDHW; ``layer{s}.{b}``, ``downsample_conv``/``_bn`` as
+    ``downsample.0``/``.1``, every other name as it is), ready for
+    ``load_state_dict(..., strict=True)``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+
+    def conv(p, key):
+        k = np.asarray(p["kernel"])
+        sd[f"{key}.weight"] = k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
+
+    def bn(p, s, key):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = np.asarray(s["mean"]), np.asarray(s["var"])
+        sd[f"{key}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+
+    def walk(p, s, prefix):
+        for name, sub in p.items():
+            key = prefix + {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(name, name)
+            if "kernel" in sub:
+                conv(sub, key)
+            elif "scale" in sub:
+                bn(sub, s[name], key)
+            else:  # a block, layer{s}_{b} -> layer{s}.{b}
+                stage, block = name.split("_")
+                walk(sub, s[name], f"{prefix}{stage}.{block}.")
+
+    walk(params, stats, "")
+    return {k: torch.tensor(np.array(v, copy=True)) for k, v in sd.items()}
+
+
+# the inverses of the JAX package's ``port_resnet101_state_dict`` and
+# ``port_resnext101_state_dict``: its ResNet101 / ResNeXt101_3D variables ->
+# the port's modules' state_dicts (torchvision's / the Kinetics keys)
+resnet101_from_flax = resnext101_from_flax = backbone_from_flax

@@ -162,7 +162,7 @@ def test_abandoned_epoch_and_close_join_the_producer(synth_dir):
 def test_a_producer_failure_is_raised_in_the_consumer(synth_dir, monkeypatch):
     loader = VideoQADataLoader(**loader_args(synth_dir["dir"]))
 
-    def broken(rows, out=None):
+    def broken(rows, out=None, n_threads=None):
         raise OSError("feature file went away")
 
     monkeypatch.setattr(loader.motion_store, "gather", broken)

@@ -1,12 +1,14 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * Importing every module of ``dualvgr_tpu_torch`` (the bf16 streaming and
-  projection modules, the port's probe, the data layer, the CLIs,
-  validation and checkpoints, the export, the HTTP front, the tokenizer,
-  the checkpoint interchange, the FLOP count and the zoos included) and ``chip_smoke`` loads none
-  of jax, flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
-  ``preprocess``, ``nltk``, ``h5py`` or ``ml_dtypes``, and runs no CLI's
-  ``main``.
+  projection modules, the port's probe, the data layer with the native
+  gather and the fixture generator, the CLIs, validation and checkpoints,
+  the export, the HTTP front, the tokenizer, the checkpoint interchange,
+  the FLOP count, the zoos, the backbones, the preprocessing, predict and
+  the extraction bench included) and ``chip_smoke`` loads none of jax,
+  flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
+  ``preprocess``, ``nltk``, ``h5py``, ``ml_dtypes``, ``cv2`` or ``PIL``,
+  and runs no CLI's ``main``.
 * The entry points default to ``device="cuda"`` and raise on a machine
   without CUDA instead of answering through the plain path; so do the
   export, serve and port_reference CLIs without ``--platforms cpu`` /
@@ -35,14 +37,18 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "dualvgr_tpu", "benchmarks",
-                                            "preprocess", "nltk", "h5py", "ml_dtypes"))
+                                            "preprocess", "nltk", "h5py", "ml_dtypes", "cv2", "PIL"))
         print(len(mods), bad)
         assert not bad, bad
         for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe", "data.vocab", "data.features",
                   "data.loader", "data.check", "parallel.mesh", "train", "validate", "validate_lib",
                   "utils.checkpoint", "utils.logging", "export", "serve", "data.questions",
                   "utils.port_reference", "utils.flops", "models.graph_zoo", "models.attention_zoo",
-                  "models.utils_zoo", "models.fusions"):
+                  "models.utils_zoo", "models.fusions", "data.native", "data.synthetic",
+                  "models.backbones.resnet2d", "models.backbones.resnext3d", "models.backbones.resnet3d_zoo",
+                  "preprocess.datautils.questions_common", "preprocess.datautils.svqa",
+                  "preprocess.datautils.msvd_qa", "preprocess.datautils.msrvtt_qa", "preprocess.questions",
+                  "preprocess.features", "preprocess.resize", "predict", "bench.extraction_bench"):
             assert "dualvgr_tpu_torch." + m in mods, m
         assert len(mods) >= 30, mods
         # importing the CLIs runs no main: nothing was trained or logged

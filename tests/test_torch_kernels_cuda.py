@@ -757,3 +757,56 @@ def test_cuda_artifact_launches_the_kernels(rs, cuda, tmp_path, compute_dtype):
             # alone in a padded batch, the row's scores are those of the full batch
             np.testing.assert_array_equal(got_ids, ids[i])
             np.testing.assert_allclose(got_scores, scores[i], rtol=0, atol=1e-6)
+
+
+# ---- the path from decoded frames (no hand-written kernel: cuDNN's convs,
+# the resize's float64 products, the native host gather)
+
+
+@pytest.mark.parametrize("kind", ["appearance", "motion"])
+def test_backbones_on_the_card_match_the_cpu_in_fp32(cuda, kind):
+    """The fp32 extractors (TF32 off inside, channels-last on the card) at
+    ``layers=(1, 1, 1, 1)`` against the same weights on the CPU, within
+    1e-4 x max|ref|; the cuDNN TF32 flag as the extractor found it after."""
+    from dualvgr_tpu_torch.preprocess.features import build_appearance_extractor, build_motion_extractor
+
+    build = build_appearance_extractor if kind == "appearance" else build_motion_extractor
+    shape = (4, 3, 64, 64) if kind == "appearance" else (3, 3, 16, 48, 48)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(0)) * 255
+    ref = build(device="cpu", layers=(1, 1, 1, 1))(x)
+    torch.backends.cudnn.allow_tf32 = True
+    got = build(device=cuda, layers=(1, 1, 1, 1))(x.to(cuda))
+    assert torch.backends.cudnn.allow_tf32 is True
+    torch.backends.cudnn.allow_tf32 = False
+    assert got.dtype == torch.float32 and got.shape == ref.shape == (shape[0], 2048)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_the_resize_on_the_card_is_the_cpus(cuda):
+    """PIL's bicubic resize on the card: bit for bit the CPU's (float64
+    sums of integers below 2^53 in any order)."""
+    from dualvgr_tpu_torch.preprocess.resize import resize_bicubic
+
+    frames = torch.randint(0, 256, (6, 3, 240, 320), dtype=torch.uint8, generator=torch.Generator().manual_seed(1))
+    for size in ((224, 224), (112, 112), (300, 400)):
+        want = resize_bicubic(frames, size)
+        got = resize_bicubic(frames.to(cuda), size)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_native_gather_fills_a_pinned_batch(cuda, dtype):
+    """The native gather into a pinned tensor (as the loader fills a batch)
+    is bit for bit ``index_select``; the batch copies to the card intact."""
+    from dualvgr_tpu_torch.data import native
+
+    src = torch.randn(300, 4, 2048).to(dtype)
+    rows = np.random.RandomState(2).randint(0, 300, 256)
+    pinned = torch.empty((256, 4, 2048), dtype=dtype, pin_memory=True)
+    for n_threads in (1, 8):
+        out = native.gather_rows(src, rows, out=pinned, n_threads=n_threads)
+        assert out.data_ptr() == pinned.data_ptr() and out.is_pinned()
+        assert torch.equal(out, native.gather_rows_reference(src, rows))
+        assert torch.equal(out.to(cuda, non_blocking=True).cpu(), out)
+    with pytest.raises(ValueError):
+        native.gather_rows(src.to(cuda), rows)
