@@ -145,7 +145,31 @@ streaming path):
     checkpoint): kernel 1 three times and kernel 2 twice in that run, the
     logits against the plain path on the same features, the top 5, and
     the ms of each stage (resize, appearance, motion, DualVGR) and of the
-    whole per video.
+    whole per video;
+21. nccl two ranks, ddp, ddp bf16, tp (after batch_gats;
+    ``parallel/dryrun.py``): the error NCCL gives for two ranks on one
+    card (printed, not checked: a later NCCL may accept them); then two
+    ranks sharing the card in a gloo group (NCCL refuses two ranks on one
+    device; gloo stages each collective through the host), phase train's
+    global batch of 256, 128 rows a rank: three data-parallel steps and a
+    validation forward against one process on the same global batch
+    (losses 1e-4 relative, module gradient norms 1e-3 at the last step,
+    the parameter checksum 1e-4, every parameter within one Adam step a
+    step, the argmax >= 0.99), kernels 3 and 4 three times a step and
+    kernels 1 and 2 three and two times a forward on each rank, step ms
+    per rank and the gradient's all-reduce ms; the same steps in bf16
+    (kernel 6 once a step, the bf16 limits against the fp32 DP steps);
+    ``tensor_parallel: 2`` (with and without ``zero_opt``) on a (1, 2)
+    mesh: no launch, the kernels' warning logged, leaves sharded over the
+    model axis, the loss within 1e-4 of the DP step's; a DP step with
+    ZeRO-1; the bytes of parameters and Adam state a rank holds in each
+    layout;
+22. ddp nccl (after cli): the train CLI in a one-rank NCCL group with
+    the environment ``torchrun --nproc_per_node 1`` sets, on phase cli's
+    dataset: its launches phase cli's, the validate CLI's predictions on
+    its best checkpoint against phase cli's (argmax agreement >= 0.99),
+    its final state saved (gathered, rank 0 writing) and restored bit for
+    bit.
 
 Kernels 1, 3 and 4 (phases bilstm, bilstm *_bf16, bilstm_train) print, per
 shape, their launch plan (cluster size, the clusters the card keeps
@@ -158,8 +182,10 @@ the SM clock, power draw and power limit that ``nvidia-smi`` reads while
 kernel 1 or 3 runs back to back.
 Then one JSON line with the kernel table (with each row's launches in
 the GCN phases, ``launches_gcn*``, kernel 2's in the stacked model's
-kernel eval, ``launches_batch_gats_eval``, and kernels 1 and 2's in phase
-predict, ``launches_predict``) and, last, the device line. Any
+kernel eval, ``launches_batch_gats_eval``, kernels 1 and 2's in phase
+predict, ``launches_predict``, and each kernel's on one rank of phase ddp,
+``launches_ddp``, ``launches_ddp_eval``, ``launches_ddp_bf16``, and in
+phase ddp nccl, ``launches_ddp_nccl``) and, last, the device line. Any
 failed check raises, and the script exits nonzero. Weights come from the
 port's own seeded init. TF32 is switched off for matmuls and for cuDNN, so
 the fp32 paths, the plain versions and the yardsticks are fp32.
@@ -2104,6 +2130,296 @@ def phase_gcn_cli(root, stores):
     return train_launches, val_launches, serve_launches
 
 
+# --- phases ddp, ddp bf16, tp and ddp nccl: the multi-device layer ---
+# The card is one H100, so the multi-rank phases put both ranks on cuda:0
+# in a gloo group (NCCL refuses two ranks on one device); gloo stages each
+# CUDA collective through the host, so its all-reduce time is not NCCL's.
+# Phase ddp nccl runs the train CLI in a one-rank NCCL group.
+DDP_RANKS, DDP_STEPS = 2, 3
+TP_DEGREE = 2
+DDP_TIMEOUT = 600.0
+# the DP step's parameters after DDP_STEPS Adam updates against one
+# process's (lr 1e-4): each module's update (p - p0) within TOL_DDP_UPDATE
+# of one process's, relative to its norm; at most TOL_DDP_FLIP_SHARE of the
+# elements beyond DDP_FLIP_ATOL (an element whose gradient is near zero
+# takes its Adam step's sign from the sum order); every element within two
+# Adam steps a step. Set from a sound run on the H100 (readings: worst
+# module 3.4e-4, share 2.0e-5, largest gap 3.2e-5). Ranks that step on
+# their own rows' gradients (no all-reduce) read 0.81-1.19 on every module
+# (on the CPU at module_dim 64, where the sound run reads 3.7e-4 to 1.0e-2)
+TOL_DDP_UPDATE = 3e-3
+DDP_FLIP_ATOL = 1e-6
+TOL_DDP_FLIP_SHARE = 2e-4
+
+
+def ddp_batches(steps=DDP_STEPS):
+    """Phase train's global batch (seed 1), ``steps`` times: every rank makes
+    it alike on the card and takes its rows."""
+    b = train_batch(torch.Generator(device="cuda").manual_seed(1))
+    return [b] * steps
+
+
+def ddp_batch_once():
+    return ddp_batches(1)
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def fmt_counts(launches):
+    """The kernels a run launched, by name, with their counts."""
+    return ",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, launches) if n) or "none"
+
+
+def nccl_rank(rank, world, init_file, out_file):
+    """One rank of an NCCL group on cuda:0: its first all-reduce's result or
+    the error NCCL gives, written to ``out_file``."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{init_file}", world_size=world, rank=rank)
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f"all_reduce gave {t.tolist()}"
+    except Exception as e:  # the refusal is the result
+        msg = f"{type(e).__name__}: {e}"
+    with open(out_file, "w") as f:
+        f.write(msg)
+
+
+def phase_nccl_two_ranks():
+    """NCCL with two ranks on the one card: the error it gives (why the
+    two-rank phases use gloo). Each rank in a process of its own, killed
+    after 90 s."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        outs = [os.path.join(d, f"rank{r}.txt") for r in range(DDP_RANKS)]
+        procs = [ctx.Process(target=nccl_rank, args=(r, DDP_RANKS, os.path.join(d, "store"), outs[r]), daemon=True)
+                 for r in range(DDP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 90
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        got = [open(o).read() if os.path.exists(o) else f"no result (exit {p.exitcode})" for o, p in zip(outs, procs)]
+    refused = all("Duplicate GPU" in g or "invalid usage" in g for g in got)
+    say("nccl two ranks", refused=refused, error=repr(" | ".join(g.replace("\n", " ") for g in got)[:600]))
+
+
+def phase_ddp():
+    """Phase train's flagship step on two gloo ranks sharing the card,
+    against one process on the same global batch (256 rows, 128 a rank,
+    the last 6 padded, dropout on, kernel path, fp32): each step's loss
+    (1e-4 relative) and module gradient norms (1e-3), the updated
+    parameters (each module's update against one process's, the share of
+    elements apart and the largest gap: TOL_DDP_*) and the validation
+    forward's argmax (>= 0.99); kernels 3 and 4 three times a step on each
+    rank, kernels 1 and 2 three and two times a validation forward; step
+    ms per rank with the gradient all-reduced in 25 MB buckets during the
+    backward and, in the same call, in one bucket when it ends, and one
+    flat all-reduce's ms alone (CUDA events). The gradient norms are
+    compared at the last step, after two updates: at the zero-bias init
+    QueryAttn's gradient is rounding noise times 1e12 (phase train), and
+    the clip scales every module by it. Then
+    the same steps in bf16 (kernel 6 once a step; within the bf16 limits of
+    the fp32 DP steps), one step under ``tensor_parallel: 2`` with
+    ``zero_opt`` (kernels off with the warning logged, sharded leaves, the
+    loss within the fp32 limit of the DP step's), the same without ZeRO,
+    and one DP step with ZeRO-1: bytes of parameters and Adam state a rank
+    holds in each layout. Returns the launches of the DP ranks."""
+    from dualvgr_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    lr = cfg_from_file(TRAIN_CFG).train.lr
+    base = dict(device="cuda", dims=FLAGSHIP, seed=0, gen_seed=0, tpu=dict(use_pallas=True), lr=lr, alpha=ALPHA,
+                beta=BETA, make_batches=ddp_batch_once)
+    ddp = dict(base, make_batches=ddp_batches, eval=True, time=True, full_state=True)
+    specs = [ddp, dict(base, make_batches=ddp_batches, tpu=dict(use_pallas=True, compute_dtype="bfloat16")),
+             dict(base, tpu=dict(use_pallas=True, tensor_parallel=TP_DEGREE, zero_opt=True), time=True),
+             dict(base, tpu=dict(use_pallas=True, tensor_parallel=TP_DEGREE)),
+             dict(base, tpu=dict(use_pallas=True, zero_opt=True)),
+             dict(base, make_batches=ddp_batches, time=True, bucket_mb=float("inf"))]
+    one = dryrun.run_steps(dict(ddp, init_state=True))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(dryrun.steps_on_rank, DDP_RANKS, (specs,), device="cuda", timeout=DDP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    dp, bf16, tpz, tp, dpz, one_bucket = ([r[i] for r in ranks] for i in range(len(specs)))
+
+    want_train = tuple(n * DDP_STEPS for n in TRAIN_LAUNCHES["float32"])
+    ref_sd, init = one["state_dict"], one["state_dict_init"]
+    weights = [k for k, v in ref_sd.items()
+               if v.is_floating_point() and not k.endswith(("running_mean", "running_var"))]
+    err = torch.cat([(dp[0]["state_dict"][k] - ref_sd[k]).abs().flatten() for k in weights])
+    param_err, max_step = err.max().item(), 2 * lr * DDP_STEPS
+    flip_share = (err > DDP_FLIP_ATOL).float().mean().item()
+    update_rel = {}  # each module's update (p - p0) against one process's
+    for m in sorted({k.split(".")[0] for k in weights}):
+        ks = [k for k in weights if k.split(".")[0] == m]
+        d_one = torch.cat([(ref_sd[k] - init[k]).flatten() for k in ks])
+        d_dp = torch.cat([(dp[0]["state_dict"][k] - init[k]).flatten() for k in ks])
+        update_rel[m] = ((d_dp - d_one).norm() / d_one.norm().clamp_min(1e-30)).item()
+    worst_gn = max(rel(r["grad_norms"][-1][k], v) for r in dp for k, v in one["grad_norms"][-1].items())
+    step_ms = [float(np.mean(r["step_ms"][1:])) for r in dp]
+    say("ddp", ranks=DDP_RANKS, backend="gloo", batch=BATCH, rows_per_rank=BATCH // DDP_RANKS, steps=DDP_STEPS,
+        losses=",".join(f"{v:.6f}" for v in dp[0]["losses"]), losses_one_process=",".join(
+            f"{v:.6f}" for v in one["losses"]),
+        worst_rel_loss=f"{max(rel(a, b) for r in dp for a, b in zip(r['losses'], one['losses'])):.2e}",
+        worst_gnorm_rel=f"{worst_gn:.2e}", checksum_rel=f"{rel(dp[0]['checksum'], one['checksum']):.2e}",
+        param_max_abs_err=f"{param_err:.3e}", share_beyond_flip_atol=f"{flip_share:.3e}",
+        worst_module_update_rel=f"{max(update_rel.values()):.3e}", module_update_rel=",".join(
+            f"{k}:{v:.2e}" for k, v in update_rel.items()),
+        eval_argmax_agreement=f"{float((dp[0]['preds'] == one['preds']).mean()):.4f}",
+        step_ms_per_rank=",".join(f"{v:.3f}" for v in step_ms),
+        step_ms_per_rank_one_bucket=",".join(f"{float(np.mean(r['step_ms'][1:])):.3f}" for r in one_bucket),
+        buckets=dp[0]["buckets"], step_ms_one_process=f"{float(np.mean(one['step_ms'][1:])):.3f}",
+        allreduce_ms=",".join(f"{r['allreduce_ms']:.3f}" for r in dp), allreduce_mb=f"{dp[0]['allreduce_mb']:.1f}",
+        launches_per_rank=fmt_counts(dp[0]["launches_train"]), launches_eval_per_rank=fmt_counts(
+            dp[0]["launches_eval"]), spawn_s=f"{spawn_s:.1f}", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    check(one["launches_train"] == want_train, f"one process: {one['launches_train']}, want {want_train}")
+    for r in dp:
+        check(r["launches_train"] == want_train, f"ddp rank {r['rank']}: {r['launches_train']}, want {want_train}")
+        check(r["launches_eval"] == EVAL_LAUNCHES["float32"],
+              f"ddp rank {r['rank']}: eval {r['launches_eval']}, want {EVAL_LAUNCHES['float32']}")
+        check(all(np.isfinite(r["losses"])), f"ddp: non-finite losses {r['losses']}")
+        for a, b in zip(r["losses"], one["losses"]):
+            check(rel(a, b) <= TOL_TRAIN_LOSS, f"ddp loss {a} against one process {b}")
+        gn, gn1 = r["grad_norms"][-1], one["grad_norms"][-1]
+        bad = {k: rel(gn[k], gn1[k]) for k in gn1 if not rel(gn[k], gn1[k]) <= TOL_TRAIN_GNORM}
+        check(not bad, f"ddp module gradient norms off one process: {bad}")
+        agree = float((r["preds"] == one["preds"]).mean())
+        check(agree >= MIN_ARGMAX_AGREEMENT, f"ddp validation argmax agreement {agree}")
+    bad = {k: v for k, v in update_rel.items() if not v <= TOL_DDP_UPDATE}
+    check(not bad, f"ddp module updates off one process's (relative, limit {TOL_DDP_UPDATE}): {bad}")
+    check(flip_share <= TOL_DDP_FLIP_SHARE,
+          f"ddp: {flip_share:.3e} of the parameters beyond {DDP_FLIP_ATOL} of one process's "
+          f"(limit {TOL_DDP_FLIP_SHARE})")
+    check(param_err <= max_step, f"ddp parameters off one process by {param_err:.3e} > {max_step:.1e}")
+    check(dp[0]["checksum"] == dp[1]["checksum"], "the two ranks end with different parameters")
+    check(dp[0]["buckets"] > 1 and one_bucket[0]["buckets"] == 1,
+          f"ddp: the gradient went in {dp[0]['buckets']} bucket(s), {one_bucket[0]['buckets']} with no cap")
+    for r, f in zip(dp, one_bucket):
+        for a, b in zip(r["losses"], f["losses"]):
+            check(rel(a, b) <= TOL_TRAIN_LOSS, f"ddp loss {a} (buckets) against {b} (one bucket)")
+
+    want_bf16 = tuple(n * DDP_STEPS for n in TRAIN_LAUNCHES["bfloat16"])
+    for r, r32 in zip(bf16, dp):
+        check(r["launches_train"] == want_bf16, f"ddp bf16 rank {r['rank']}: {r['launches_train']}, want {want_bf16}")
+        for a, b in zip(r["losses"], r32["losses"]):
+            check(rel(a, b) <= TOL_BF16_TRAIN_LOSS, f"ddp bf16 loss {a} against fp32 {b}")
+        bad = {k: v for k, v in r["grad_norms"][-1].items()
+               if not rel(v, r32["grad_norms"][-1][k]) <= TOL_BF16_TRAIN_GNORM}
+        check(not bad, f"ddp bf16 module gradient norms off the fp32 DP step: {bad}")
+    say("ddp bf16", losses=",".join(f"{v:.6f}" for v in bf16[0]["losses"]),
+        worst_rel_loss=f"{max(rel(a, b) for a, b in zip(bf16[0]['losses'], dp[0]['losses'])):.2e}",
+        tol_loss=TOL_BF16_TRAIN_LOSS,
+        worst_gnorm_rel=f"{max(rel(v, dp[0]['grad_norms'][-1][k]) for k, v in bf16[0]['grad_norms'][-1].items()):.2e}",
+        tol_gnorm=TOL_BF16_TRAIN_GNORM, launches_per_rank=fmt_counts(bf16[0]["launches_train"]))
+
+    for tag, rs in (("tp zero", tpz), ("tp", tp)):
+        for r in rs:
+            check(r["launches_train"] == (0,) * len(KERNELS), f"{tag}: launched {r['launches_train']}")
+            check(not r["use_kernels"] and any("forces the plain (non-kernel) execution path" in w
+                                                for w in r["warnings"]), f"{tag}: no kernel warning: {r['warnings']}")
+            check(r["tp_sharded_leaf_count"] > 0, f"{tag}: no leaf sharded over the model axis")
+            check(rel(r["losses"][0], dp[0]["losses"][0]) <= TOL_TRAIN_LOSS,
+                  f"{tag} loss {r['losses'][0]} against the ddp step {dp[0]['losses'][0]}")
+    say("tp", ranks=DDP_RANKS, mesh=f"(1, {TP_DEGREE})", zero_opt=True, loss=f"{tpz[0]['losses'][0]:.6f}",
+        loss_ddp=f"{dp[0]['losses'][0]:.6f}", rel_loss=f"{rel(tpz[0]['losses'][0], dp[0]['losses'][0]):.2e}",
+        tp_sharded_leaf_count=tpz[0]["tp_sharded_leaf_count"], step_ms_per_rank=",".join(
+            f"{r['step_ms'][0]:.1f}" for r in tpz), launches=fmt_counts(tpz[0]["launches_train"]),
+        bytes_per_rank_dp=dp[0]["state_bytes"], bytes_per_rank_dp_zero=",".join(
+            str(r["state_bytes"]) for r in dpz), bytes_per_rank_tp2=",".join(str(r["state_bytes"]) for r in tp),
+        bytes_per_rank_tp2_zero=",".join(str(r["state_bytes"]) for r in tpz),
+        note="tp2_zero_equals_tp2:one_data_rank_on_a_(1,2)_mesh")
+    return dp[0]["launches_train"], dp[0]["launches_eval"], bf16[0]["launches_train"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_ddp_nccl(root, raw, stores, accs, preds, first, cli_train):
+    """The train CLI (``dualvgr_tpu_torch.train.train``) in a one-rank NCCL
+    group, with the environment ``torchrun --nproc_per_node 1`` sets, on
+    phase cli's dataset: the process group, the mesh, the host-sharded
+    loader and the placed state on the way; its launches those of phase
+    cli's training; the validate CLI in the same group on its best
+    checkpoint against phase cli's predictions (argmax agreement >= 0.99);
+    its final state saved (gathered, rank 0 writing) and restored bit for
+    bit. Returns the training launches."""
+    import torch.distributed as dist
+
+    from dualvgr_tpu_torch.parallel import tp as ttp
+
+    t0 = time.perf_counter()
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg_raw = copy.deepcopy(raw)
+        cfg_raw.dataset.save_dir = os.path.join(root, "ddp_nccl")
+        cfg_raw.tpu.profile_dir = ""
+        cfg = copy.deepcopy(cfg_raw)
+        cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
+        cfg.alpha, cfg.beta, cfg.unit_layers = ALPHA, BETA, 1
+        cfg = resolve_dataset_paths(cfg)
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            best_val, state = ttrain.train(cfg, feature_stores=stores)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "the train CLI brought up no one-rank NCCL group")
+        check(state.placement is not None and state.placement.data.size == 1, "the state was not placed")
+        check(launches == cli_train, f"ddp nccl training launched {launches}, phase cli {cli_train}")
+        n_accs, n_preds, _, _ = cli_run_validate(cfg_raw, stores)
+        agree = cli_agreement("ddp nccl vs cli", n_accs, n_preds, accs, preds, first)
+        check(agree >= MIN_ARGMAX_AGREEMENT, f"ddp nccl: argmax agreement {agree} with phase cli")
+        ckpt = os.path.join(root, "ckpt_nccl")
+        save_checkpoint(ckpt, CLI_EPOCHS - 1, state, model_kwargs_tosave(cfg))
+        vocab = load_vocab(cfg.dataset.vocab_json)
+        twin = create_train_state(ttrain.build_model(cfg, vocab, "cuda"), state.optimizer, seed=1)
+        restore_checkpoint(ckpt, twin)
+        sd, opt, acc = ttp.full_state_dicts(state)
+        (sb, ab, cb, gb, gen_b) = state_fields(twin)
+        check(sd.keys() == sb.keys() and all(torch.equal(sd[k].cpu(), sb[k]) for k in sd), "restored params differ")
+        aa = {(i, k): v.cpu() for i, st in opt["state"].items() for k, v in st.items()}
+        check(aa.keys() == ab.keys() and all(torch.equal(aa[k], ab[k]) for k in aa), "restored Adam differs")
+        check((state.step, state.updates, state.mini_step) == cb and all(
+            torch.equal(x.cpu(), y) for x, y in zip(acc, gb)), "restored counts differ")
+        check(torch.equal(state.generator.get_state(), gen_b), "restored generator differs")
+        say("ddp nccl", backend=dist.get_backend(), world_size=dist.get_world_size(), best_val=f"{best_val:.4f}",
+            test_acc=f"{n_accs[0]:.4f}", cli_test_acc=f"{accs[0]:.4f}", argmax_agreement_with_cli=f"{agree:.4f}",
+            restore_bit_exact=True, launches_train=fmt_counts(launches), seconds=f"{time.perf_counter() - t0:.1f}")
+        del state, twin
+        return launches
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.empty_cache()
+
+
 def phase_zoo():
     """Phase ``zoo``: every class of the zoos (decoder and question-encoder
     variants, graph, attention and model-utils zoos, fusions) once on CUDA
@@ -2340,11 +2656,15 @@ def main():
     gcn["batch_gats eval"] = phase_batch_gats(batch)
     del batch
     torch.cuda.empty_cache()
+    phase_nccl_two_ranks()
+    ddp_launches, ddp_eval_launches, ddp_bf16_launches = phase_ddp()
+    torch.cuda.empty_cache()
     k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
     torch.cuda.empty_cache()
     extractors = phase_extract()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
+        ddp_nccl_launches = phase_ddp_nccl(root, raw, stores["float32"], accs, preds, first, cli_train)
         cli_bf16 = phase_cli_bf16(raw, stores, accs, preds, first, model_ms)
         predict_launches = phase_predict(raw, extractors)
         del extractors
@@ -2375,6 +2695,13 @@ def main():
         kernel eval forward."""
         return {f"launches_{k.replace(' ', '_')}": n[i] for k, n in gcn.items()}
 
+    def ddp_launches_of(i):
+        """Kernel i's launches in the multi-device phases: on each rank of
+        phase ddp over its 3 steps and its validation forward, in its bf16
+        step, and in phase ddp nccl's training."""
+        return dict(launches_ddp=ddp_launches[i], launches_ddp_eval=ddp_eval_launches[i],
+                    launches_ddp_bf16=ddp_bf16_launches[i], launches_ddp_nccl=ddp_nccl_launches[i])
+
     def deploy_launches(i):
         """Kernel i's launches through the loaded artifacts (phases export,
         export bf16) and the HTTP front (phase http, its three routes)."""
@@ -2385,40 +2712,41 @@ def main():
         kernel_entry("bilstm_recurrence", "dualvgr_tpu_torch/csrc/bilstm_recurrence.cu",
                      "dualvgr_tpu/ops/lstm_pallas.py:107", serve_launches[0], lstm_cases,
                      f"one flagship forward (batch 256): {eval_shapes}; *_bf16: the bf16 forward's "
-                     "bf16-gate shapes", library=True, side_cases=lstm_bf16,
+                     "bf16-gate shapes", **ddp_launches_of(0), library=True, side_cases=lstm_bf16,
                      launches_bf16=serve_bf16_launches[0], **cli_launches(0), **deploy_launches(0),
                      **gcn_launches(0), launches_predict=predict_launches[0]),
         kernel_entry("gat_cycle", "dualvgr_tpu_torch/csrc/gat_cycle.cu",
                      "dualvgr_tpu/ops/gat_pallas.py:105", serve_launches[1], gat_cases,
                      "one flagship forward (batch 256): appearance + motion streams (fp32 in the bf16 "
                      f"forward too); *_b{SERVE_BATCH}: the same streams' first {SERVE_BATCH} videos (a served "
-                     "batch)", library=False, side_cases=gat_serve_cases, launches_bf16=serve_bf16_launches[1],
+                     "batch)", **ddp_launches_of(1), library=False, side_cases=gat_serve_cases,
+                     launches_bf16=serve_bf16_launches[1],
                      **cli_launches(1), **deploy_launches(1), **gcn_launches(1),
                      launches_predict=predict_launches[1]),
         kernel_entry("bilstm_train_fwd", "dualvgr_tpu_torch/csrc/bilstm_train_fwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:202", train_launches[2], fwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN "
                      "training-mode forward, input projection included; appearance_bf16: the bf16 "
-                     "step's bf16 gates", library=True, side_cases=[fwd_bf16],
+                     "step's bf16 gates", **ddp_launches_of(2), library=True, side_cases=[fwd_bf16],
                      launches_bf16=train_bf16_launches[2], **cli_launches(2), **gcn_launches(2)),
         kernel_entry("bilstm_train_bwd", "dualvgr_tpu_torch/csrc/bilstm_train_bwd.cu",
                      "dualvgr_tpu/ops/lstm_pallas_train.py:239", train_launches[3], bwd_cases,
                      f"one flagship train step (batch 256): {eval_shapes}; library: cuDNN backward, "
                      "dX, dW_ih, dW_hh and the biases' gradients included; appearance_bf16: the bf16 "
-                     "step's bf16 gates", library=True, side_cases=[bwd_bf16],
+                     "step's bf16 gates", **ddp_launches_of(3), library=True, side_cases=[bwd_bf16],
                      launches_bf16=train_bf16_launches[3], **cli_launches(3), **gcn_launches(3)),
         kernel_entry("input_proj_one", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:68", n5, k5_cases[:1],
                      "two launches (forward, time-reversed) at R = 4096, as the probe's v2; R512 at batch "
                      "32; library: the probe's v0 (tanh, two cuBLAS bf16 products with fp32 output, bias, "
-                     "cast, time-major copy, flip)", library=True, side_cases=k5_cases[1:],
+                     "cast, time-major copy, flip)", **ddp_launches_of(4), library=True, side_cases=k5_cases[1:],
                      peak=PEAK_BF16_FLOPS),
         kernel_entry("input_proj_both", "dualvgr_tpu_torch/csrc/input_proj.cu",
                      "benchmarks/proj_probe.py:112", serve_bf16_launches[5], k6_cases[:1],
                      "one call on fp32 x (the tanh pass, then the product) at R = 4096 (the bf16 forward at "
                      "batch 256); R512 at batch 32; library: the probe's v0 (library_v1_ms: v1); bf16_x_ms: "
                      "the form on bf16 x (the bf16 train step's); tanh_to_bf16: the tanh pass alone",
-                     library=True, side_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
+                     **ddp_launches_of(5), library=True, side_cases=k6_cases[1:], peak=PEAK_BF16_FLOPS,
                      launches_train_bf16=train_bf16_launches[5], **cli_launches(5), **deploy_launches(5),
                      **gcn_launches(5),
                      library_v1_ms=k6_cases[0]["library_v1_ms"],
@@ -2426,7 +2754,7 @@ def main():
                      tanh_to_bf16=dict(
                          source="dualvgr_tpu_torch/csrc/input_proj.cu", replaces="benchmarks/proj_probe.py:124",
                          launches=serve_bf16_launches[6], **cli_launches(6), **deploy_launches(6),
-                         **gcn_launches(6),
+                         **gcn_launches(6), **ddp_launches_of(6),
                          max_abs_err=tanh_cases[0]["err"],
                          **{k: tanh_cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                          per="one call on the R = 4096 x; library: torch.tanh(x, out=bf16); R512 at batch 32",

@@ -17,8 +17,10 @@ from the config. Of the ``tpu`` keys, ``compute_dtype`` and ``use_pallas``
 (``feature_cache_gb``, ``prefetch``, ``transfer_dtype``, ``log_every``,
 ``profile_dir``, ``grad_accum``, ``autosave``, ``metrics_jsonl``) are read
 by ``dualvgr_tpu_torch.train`` and ``.validate``; the multi-device keys
-parse and are held at their defaults (``UNHONOURED_TPU_KEYS``), and
-``prng_impl`` may only be "auto" (``model_runtime_kwargs``).
+(``mesh_axis``, ``tensor_parallel``, ``zero_opt``) by
+``parallel.tp.mesh_for`` and ``place_state`` through the same CLIs, and
+``tensor_parallel > 1`` turns the kernels off (``model_runtime_kwargs``);
+``prng_impl`` may only be "auto".
 """
 
 from __future__ import annotations
@@ -125,13 +127,6 @@ def default_config() -> Config:
     })
 
 
-# tpu keys that parse but that no code of the port reads yet: a value other
-# than the default is refused by ``model_runtime_kwargs`` (multi-device, not
-# ported yet (ROADMAP.md)). The data and CLI keys are read by the train
-# and validate CLIs (``dualvgr_tpu_torch/train.py``, ``validate.py``).
-UNHONOURED_TPU_KEYS = ("mesh_axis", "tensor_parallel", "zero_opt")
-
-
 def _merge_into(yaml_cfg: dict, cfg: Config, path: str = "") -> None:
     """Recursive type-checked merge (behavioral port of config.py:59-91)."""
     if not isinstance(yaml_cfg, dict):
@@ -213,25 +208,32 @@ def resolved_use_kernels(cfg: Config, device) -> bool:
 
 def model_runtime_kwargs(cfg: Config, device) -> dict:
     """The ``cfg.tpu`` knobs that are ``build_model`` arguments, for a model
-    on ``device``: ``{"use_kernels": ..., "compute_dtype": ...}``. Raises if
-    a key the port does not honour yet (``UNHONOURED_TPU_KEYS``) is set
-    away from its default, rather than run without it, and if
+    on ``device``: ``{"use_kernels": ..., "compute_dtype": ...}``.
+
+    Under tensor parallelism (``tensor_parallel > 1``) the kernels are off,
+    with the JAX package's warning: the port's kernels take whole weights
+    and whole rows, as a ``pallas_call`` is opaque to the SPMD partitioner
+    there, so the sharded layers run the plain path. Raises if
     ``prng_impl`` names one of JAX's generators."""
-    defaults = default_config().tpu
-    set_keys = [k for k in UNHONOURED_TPU_KEYS if cfg.tpu.get(k, defaults[k]) != defaults[k]]
-    if set_keys:
-        raise NotImplementedError(
-            f"tpu.{', tpu.'.join(set_keys)} {'is' if len(set_keys) == 1 else 'are'} not honoured by "
-            "the port yet (ROADMAP.md); leave them at their defaults"
-        )
     prng = cfg.tpu.get("prng_impl", "auto")
     if prng != "auto":
         raise NotImplementedError(
             f"tpu.prng_impl={prng!r} names a JAX random-number generator (threefry2x32, rbg), which "
             "torch does not have: the port draws dropout from a torch.Generator; leave it at 'auto'"
         )
+    tp = int(cfg.tpu.get("tensor_parallel", 1))
+    kernels = resolved_use_kernels(cfg, device)
+    if kernels and tp > 1:
+        import logging
+
+        logging.warning(
+            "tpu.tensor_parallel=%d forces the plain (non-kernel) execution path: the hand-written "
+            "kernels take whole weights, so they do not compose with tensor parallelism. Set "
+            "tensor_parallel: 1 to get the kernels back.",
+            tp,
+        )
     return {
-        "use_kernels": resolved_use_kernels(cfg, device),
+        "use_kernels": kernels and tp <= 1,
         "compute_dtype": resolved_compute_dtype(cfg, device),
     }
 

@@ -27,9 +27,11 @@ path or a ``FeatureStore``. A failure in the producer is raised in the
 consumer (the JAX loader ends the epoch early instead). ``num_workers``
 (the reference's forked workers) is, as in the JAX loader, the thread count
 of the native row gather (``data/native.py``; 0: ``min(cpus, 8)``), which
-fills each pinned batch. Host-sharded loading (the JAX loader's
-``host_index``/``host_count``) belongs to multi-device, not ported yet
-(ROADMAP.md).
+fills each pinned batch. With ``host_count > 1`` (the host-sharded mode of
+multi-device training) this rank gathers only rows ``[host_index * B / H,
+(host_index + 1) * B / H)`` of each global batch, straight into its pinned
+batch; the order and the padding are computed globally from the shared
+seed, so every rank agrees on the epoch without communicating.
 """
 
 from __future__ import annotations
@@ -96,7 +98,19 @@ class VideoQADataLoader:
         # and the host->device bytes per step; the model upcasts on device
         transfer_dtype: str = "float32",
         pin_memory: bool = False,
+        # host-sharded loading: this rank's block of each global batch (the
+        # rows parallel.process_batch_bounds gives it)
+        host_index: int = 0,
+        host_count: int = 1,
     ):
+        if host_count > 1:
+            if batch_size % host_count:
+                raise ValueError(f"batch_size {batch_size} not divisible by host_count {host_count}")
+            if not pad_final:
+                raise ValueError("host-sharded loading requires pad_final")
+            if not 0 <= host_index < host_count:
+                raise ValueError(f"host_index {host_index} not in [0, {host_count})")
+        self.host_index, self.host_count = host_index, host_count
         self.vocab = load_vocab(vocab_json)
         with open(question_pt, "rb") as f:
             obj = pickle.load(f)
@@ -207,6 +221,8 @@ class VideoQADataLoader:
         if self.shuffle:
             self._rng.shuffle(order)
         bs = self.batch_size
+        per = bs // self.host_count
+        lo = self.host_index * per
         for start in range(0, self.num_samples, bs):
             idx = order[start : start + bs]
             n_valid = len(idx)
@@ -215,6 +231,8 @@ class VideoQADataLoader:
                 idx = np.concatenate([idx, pad])
             valid = np.zeros((len(idx),), np.float32)
             valid[:n_valid] = 1.0
+            if self.host_count > 1:
+                idx, valid = idx[lo : lo + per], valid[lo : lo + per]
             yield idx, valid
 
     def __iter__(self):

@@ -24,6 +24,7 @@ from dualvgr_tpu_torch.models.fusion import MFB
 from dualvgr_tpu_torch.models.init import dense
 from dualvgr_tpu_torch.ops.dropout import Dropout
 from dualvgr_tpu_torch.ops.precision import SLinear
+from dualvgr_tpu_torch.parallel.comm import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -36,12 +37,21 @@ class MaskedBatchNorm(nn.Module):
     ``MaskedBatchNorm``). Eval mode normalizes with the running statistics.
     Names follow torch's BatchNorm1d: weight, bias, running_mean,
     running_var, num_batches_tracked.
+
+    Under data parallelism (``axis``, the data axis, set by
+    ``parallel.tp.place_state``) the statistics are the global batch's, as
+    in the JAX package, whose batch norm runs over the whole sharded
+    batch: the masked count, the masked sum and then the masked squared
+    deviations are summed over the axis, the sums with autograd through the
+    reduction. Every rank then normalizes with the same statistics and
+    updates the same running ones. (``nn.SyncBatchNorm`` takes no mask.)
     """
 
     momentum = 0.1
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
+        self.axis = None
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
@@ -55,10 +65,16 @@ class MaskedBatchNorm(nn.Module):
             return y * self.weight + self.bias
         if valid is None:
             valid = x.new_ones((x.shape[0],))
-        n = valid.sum().clamp(min=1.0)
-        w = (valid / n)[:, None]
-        mean = (w * x).sum(dim=0)
-        var = (w * (x - mean) ** 2).sum(dim=0)  # biased, used to normalize
+        if self.axis is not None and self.axis.size > 1:
+            n = all_reduce_sum(valid.sum(), self.axis).clamp(min=1.0)
+            w = (valid / n)[:, None]
+            mean = all_reduce_sum((w * x).sum(dim=0), self.axis)
+            var = all_reduce_sum((w * (x - mean) ** 2).sum(dim=0), self.axis)
+        else:
+            n = valid.sum().clamp(min=1.0)
+            w = (valid / n)[:, None]
+            mean = (w * x).sum(dim=0)
+            var = (w * (x - mean) ** 2).sum(dim=0)  # biased, used to normalize
         with torch.no_grad():
             unbiased = var * n / (n - 1.0).clamp(min=1.0)
             self.running_mean.lerp_(mean, self.momentum)

@@ -124,7 +124,7 @@ class DualVGRUnitStack(nn.Module):
         nh, hd = g0.n_heads, g0.head_dim
         k4, b, n, _ = x4.shape
         w4, b4, a4, ab4 = (torch.stack(t) for t in zip(*(g.merged() for g in gats)))
-        x4 = self.cycle_drop(x4, generator)
+        x4 = self.cycle_drop(x4, generator, batch_dim=1)
         wh = streamed_einsum("kbnd,kdh->kbnh", x4, w4, g0.stream_dtype)
         wh = (wh + b4[:, None, None, :]).view(k4, b, n, nh, hd)
         src = torch.einsum("kbnhd,khd->kbhn", wh, a4[..., :hd])
@@ -133,9 +133,9 @@ class DualVGRUnitStack(nn.Module):
         e = F.leaky_relu(e, g0.alpha)
         e = torch.where(adj[None, None, None] > 0, e, torch.full_like(e, -9e15))
         wh = wh * scores4[:, :, :, None, :]
-        attn = self.cycle_drop(torch.softmax(e, dim=-1), generator)
+        attn = self.cycle_drop(torch.softmax(e, dim=-1), generator, batch_dim=1)
         out = F.elu(torch.einsum("kbhij,kbjhd->kbihd", attn, wh)).reshape(k4, b, n, nh * hd)
-        return self.cycle_drop(out, generator)
+        return self.cycle_drop(out, generator, batch_dim=1)
 
     def forward(self, appearance_feat, motion_feat, dynamic_question_embedding,
                 word_embedding, question_len, *, use_kernels: bool, generator=None):

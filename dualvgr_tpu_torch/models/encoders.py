@@ -49,11 +49,14 @@ from dualvgr_tpu_torch.ops.precision import SLinear
 class BiLSTM(nn.Module):
     """Bidirectional masked LSTM over (B, T, D), with nn.LSTM's parameter
     names and shapes (weight_ih_l0 (4H, D), ..., the ``_reverse`` set).
-    ``stream_dtype`` (None or bf16) is set from the model's compute_dtype."""
+    ``stream_dtype`` (None or bf16) is set from the model's compute_dtype;
+    ``input_proj`` (None: ``ops/lstm.py::time_major_input_proj``) by tensor
+    parallelism (``parallel/tp.py``)."""
 
     def __init__(self, input_dim: int, hidden: int):
         super().__init__()
         self.stream_dtype: torch.dtype | None = None
+        self.input_proj = None
         for sfx in ("", "_reverse"):
             self.register_parameter(f"weight_ih_l0{sfx}", nn.Parameter(torch.empty(4 * hidden, input_dim)))
             self.register_parameter(f"weight_hh_l0{sfx}", nn.Parameter(torch.empty(4 * hidden, hidden)))
@@ -74,7 +77,7 @@ class BiLSTM(nn.Module):
         return bilstm(
             self._params(""), self._params("_reverse"), x, lengths,
             with_outputs=with_outputs, use_kernel=use_kernel, train=self.training,
-            drop_input_grad=drop_input_grad, stream_dtype=self.stream_dtype,
+            drop_input_grad=drop_input_grad, stream_dtype=self.stream_dtype, proj=self.input_proj,
         )
 
 

@@ -67,7 +67,7 @@ def appearance_final_bf16(fwd: LSTMParams, bwd: LSTMParams, x):
 def bilstm(
     fwd: LSTMParams, bwd: LSTMParams, x, lengths=None, *,
     with_outputs: bool = True, use_kernel: bool = False, train: bool = False,
-    drop_input_grad: bool = False, stream_dtype=None,
+    drop_input_grad: bool = False, stream_dtype=None, proj=None,
 ):
     """Bidirectional masked LSTM over x (B, T, D).
 
@@ -82,7 +82,9 @@ def bilstm(
     (``appearance_bilstm_train``: full-length, final-only, no gradient for
     x, so only for an x with nothing trainable upstream). ``stream_dtype``
     (None or bf16) streams the projection and rounds the gates (module
-    docstring); the outputs are fp32 in every routing.
+    docstring); the outputs are fp32 in every routing. ``proj`` replaces
+    ``time_major_input_proj`` on the plain and trainable routings (tensor
+    parallelism's column-parallel projection, ``parallel/tp.py``).
     """
     sd = stream_dtype
     w_hh_f, w_hh_b = fwd.w_hh.t().contiguous(), bwd.w_hh.t().contiguous()
@@ -94,8 +96,9 @@ def bilstm(
             stream_dtype=sd,
         )
         return None, final
-    xf = time_major_input_proj(x, fwd, stream_dtype=sd)
-    xb = time_major_input_proj(x, bwd, reverse=True, stream_dtype=sd)
+    proj = proj or time_major_input_proj
+    xf = proj(x, fwd, stream_dtype=sd)
+    xb = proj(x, bwd, reverse=True, stream_dtype=sd)
     if sd is not None:
         if use_kernel and not train:  # kernel 1 reads bf16 gates
             xf, xb = xf.to(sd), xb.to(sd)

@@ -17,6 +17,22 @@ autosave at every epoch end and on SIGTERM/SIGINT at the next step
 epoch. It runs on the CUDA device unless ``--device cpu`` is given; there
 is no fallback. ``graph_module`` is "GCN" (the config default) or "GAT";
 any other raises the JAX package's ValueError.
+
+On several GPUs, one process each:
+
+    torchrun --nproc_per_node N -m dualvgr_tpu_torch.train --cfg ... [--device cuda|cpu]
+
+As the JAX train.py does (its lines 78-98), the distributed bring-up comes
+first (``parallel.maybe_initialize_distributed``: NCCL on CUDA, gloo on the
+CPU), then the mesh (``parallel.mesh_for``: data parallel, or (data, model)
+under ``tpu.tensor_parallel``), then the loaders in their host-sharded mode
+(each rank gathers only its rows of every global batch), then the
+state, restored on rank 0 alone and placed on the mesh
+(``parallel.place_state``, ZeRO-1 under ``tpu.zero_opt``). Validation
+evaluates each rank's rows of every global batch and gathers the
+predictions. Rank 0 alone writes the checkpoints, the metrics stream, the ticker and
+the profile; a checkpoint is gathered by every rank and the others wait
+at a barrier until it is written.
 """
 
 from __future__ import annotations
@@ -31,13 +47,15 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dualvgr_tpu_torch import train_lib, validate_lib
 from dualvgr_tpu_torch.config import cfg_from_file, model_runtime_kwargs, resolve_dataset_paths
 from dualvgr_tpu_torch.data import VideoQADataLoader
 from dualvgr_tpu_torch.models.dualvgr import DualVGR
 from dualvgr_tpu_torch.models.dualvgr import build_model as build_dualvgr
-from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+from dualvgr_tpu_torch.parallel.mesh import maybe_initialize_distributed, prefetch_to_device, process_batch_bounds
+from dualvgr_tpu_torch.parallel.tp import mesh_for, place_state
 from dualvgr_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint, saved_epoch
 from dualvgr_tpu_torch.utils.device import resolve_device
 from dualvgr_tpu_torch.utils.logging import MetricsWriter, setup_logging, train_ticker
@@ -76,7 +94,8 @@ def model_kwargs_tosave(cfg) -> dict:
 def make_loader(cfg, question_pt, *, shuffle, device, feature_stores=None, **num):
     """A VideoQADataLoader on the config's artifacts (or on
     ``feature_stores``, an (appearance, motion) pair of FeatureStores),
-    pinned for a CUDA device."""
+    pinned for a CUDA device; ``num`` takes the head truncations and the
+    host-sharded mode's ``host_index`` and ``host_count``."""
     app, motion = feature_stores or (cfg.dataset.appearance_feat, cfg.dataset.motion_feat)
     return VideoQADataLoader(
         question_pt=question_pt,
@@ -95,6 +114,17 @@ def make_loader(cfg, question_pt, *, shuffle, device, feature_stores=None, **num
     )
 
 
+def host_sharding(cfg, mesh) -> dict:
+    """The loaders' host-sharded mode on ``mesh``: ``host_index`` and
+    ``host_count`` such that this rank gathers its block of every global
+    batch along the data axis ``tpu.mesh_axis``; {} without a mesh."""
+    if mesh is None:
+        return {}
+    lo, hi = process_batch_bounds(mesh, cfg.tpu.mesh_axis, cfg.train.batch_size)
+    logging.info("host-sharded loading: rows [%d, %d) of each global batch", lo, hi)
+    return dict(host_index=lo // (hi - lo), host_count=cfg.train.batch_size // (hi - lo))
+
+
 def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
     """Train from ``cfg`` (save_dir already under exp_name, dataset paths
     resolved: what ``main`` does). ``stop_event`` (threading.Event)
@@ -102,17 +132,26 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
     and returns. ``feature_stores``: an optional (appearance, motion) pair
     of FeatureStores handed to every loader in place of the HDF5 files.
     Returns (best val accuracy, train state)."""
+    # distributed bring-up first: the host-sharded loader needs the mesh
+    if maybe_initialize_distributed(device):
+        logging.info("process group up: rank %d of %d (%s)", dist.get_rank(), dist.get_world_size(),
+                     dist.get_backend())
     dev = resolve_device(device)
     logging.info("device: %s", torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev)
+    mesh = mesh_for(cfg, dev)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if mesh is not None:
+        logging.info("device mesh: %s", dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
+    sharding = host_sharding(cfg, mesh)
 
     logging.info("Create train_loader and val_loader.........")
     train_loader = make_loader(cfg, cfg.dataset.train_question_pt, shuffle=True, device=dev,
-                               feature_stores=feature_stores, train_num=cfg.train.train_num)
+                               feature_stores=feature_stores, train_num=cfg.train.train_num, **sharding)
     logging.info("number of train instances: %d", train_loader.num_samples)
     val_loader = None
     if cfg.val.flag:
         val_loader = make_loader(cfg, cfg.dataset.val_question_pt, shuffle=False, device=dev,
-                                 feature_stores=feature_stores, val_num=cfg.val.val_num)
+                                 feature_stores=feature_stores, val_num=cfg.val.val_num, **sharding)
         logging.info("number of val instances: %d", val_loader.num_samples)
 
     logging.info("Create model.........")
@@ -150,11 +189,13 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
                 f"train.restore is True but no checkpoint exists under {ckpt_dir} or {autosave_dir} "
                 "(best checkpoints are only written when validation accuracy improves)"
             )
-        epoch, state = restore_checkpoint(restore_dir, state)
+        # rank 0 reads the state; place_state broadcasts it
+        epoch = restore_checkpoint(restore_dir, state)[0] if rank0 else saved_epoch(restore_dir)
         # the restored epoch replays from its start: a partly filled
         # grad-accum window would count its samples twice; drop it
         state = train_lib.reset_grad_accum(state)
         start_epoch = epoch + 1
+    state = place_state(state, mesh, zero_opt=bool(cfg.tpu.get("zero_opt", False)))
 
     best_val = 0.0
     best_cats = None
@@ -172,11 +213,11 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
     metrics_path = str(cfg.tpu.get("metrics_jsonl", "") or "")
     if metrics_path and not os.path.isabs(metrics_path):
         metrics_path = os.path.join(cfg.dataset.save_dir, "log", metrics_path)
-    metrics_writer = MetricsWriter(metrics_path)
+    metrics_writer = MetricsWriter(metrics_path if rank0 else "")
 
     logging.info("Start training........")
     for epoch in range(start_epoch, cfg.train.max_epochs):
-        if profile_dir and epoch == start_epoch + 1 and profiler is None:
+        if profile_dir and rank0 and epoch == start_epoch + 1 and profiler is None:
             # trace the 2nd epoch (the 1st carries the kernels' builds and
             # the pinned-memory allocations)
             from torch.profiler import ProfilerActivity, profile
@@ -193,7 +234,8 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
             for b in train_loader:
                 yield (b.appearance_feat, b.motion_feat, b.question, b.question_len, b.answer, b.valid)
 
-        for i, device_batch in enumerate(prefetch_to_device(host_batches(), dev, size=prefetch)):
+        batches = prefetch_to_device(host_batches(), dev, size=prefetch, local=mesh is not None)
+        for i, device_batch in enumerate(batches):
             pending.append(train_lib.train_step(state, device_batch, alpha=cfg.alpha, beta=cfg.beta))
             if stop_event is not None and stop_event.is_set():
                 # mid-epoch preemption: save with epoch-1 so resume re-runs
@@ -212,6 +254,8 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
                 pending = []
                 progress = epoch + (i + 1) / steps_per_epoch
                 batch_acc = float(last["correct"]) / max(int(last["count"]), 1)
+                if not rank0:
+                    continue
                 train_ticker(progress, float(last["ce"]), total_loss / max(logged_steps, 1), batch_acc,
                              total_correct / max(total_count, 1), cfg.exp_name)
                 metrics_writer.write(
@@ -226,7 +270,8 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
                     # train.py's formula over micro-steps (its lines 296-299)
                     lr=float(state.optimizer.lr(max(state.step // grad_accum - 1, 0))),
                 )
-        sys.stdout.write("\n")
+        if rank0:
+            sys.stdout.write("\n")
         if profiler is not None:
             profiler.stop()
             os.makedirs(profile_dir, exist_ok=True)
@@ -243,7 +288,8 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
 
         if cfg.val.flag and val_loader is not None:
             valid_acc, *cat_accs = validate_lib.validate(
-                cfg, train_lib.pred_step, state, val_loader, write_preds=False, device=dev, prefetch=prefetch
+                cfg, train_lib.pred_step, state, val_loader, write_preds=False, device=dev, prefetch=prefetch,
+                mesh=mesh,
             )
             logging.info("~~~~~~ Valid Accuracy: %.4f ~~~~~~~", valid_acc)
             for nm, a in zip(cat_names, cat_accs):
@@ -264,10 +310,12 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
         if autosave_on:
             _autosave(epoch, "epoch end")
 
-    if not preempted and os.path.exists(autosave_dir):
+    if rank0 and not preempted and os.path.exists(autosave_dir):
         # clean completion: drop the autosave so `train.restore: True`
         # restores the BEST checkpoint (reference semantics), not the last
         shutil.rmtree(autosave_dir)
+    if mesh is not None:
+        dist.barrier()
 
     if best_cats is not None:
         logging.info("~~~~~~ Best Valid Accuracy: %.4f ~~~~~~~", best_val)
@@ -328,6 +376,8 @@ def main(argv=None):
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

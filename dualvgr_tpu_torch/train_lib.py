@@ -18,6 +18,20 @@ one Adam update. Three details follow optax, which the JAX package uses:
 * with ``grad_accum = K`` every K calls make one update from the MEAN of
   their K gradients (``optax.MultiSteps``), one clip and one Adam step.
 
+Under data parallelism (a state placed by ``parallel.tp.place_state``)
+the step computes what one process computes on the global batch, as the
+JAX package's does over a sharded batch: each rank's loss is its rows'
+share of the global loss (the means over the global batch's valid rows,
+``ops/losses.py``), the gradients are summed over the data axis by
+all-reduces that the backward launches bucket by bucket as it finishes
+their gradients, as ``DistributedDataParallel`` does, so that the
+communication overlaps the rest of the backward (``_GradBuckets`` in
+``parallel/tp.py``; DDP's wrapper is not used, so that one path serves
+whole parameters, TP shards and ZeRO-1 slices), the clip's norm is taken
+after them (identical on every rank), the accumulation window averages
+all-reduced gradients, and the metrics are the global batch's. Under ZeRO-1 Adam runs on this rank's
+slices and the slices are gathered (``parallel/tp.py``).
+
 The state is updated in place; ``train_step`` returns the metrics as 0-d
 tensors on the model's device, so a loop need not wait for the card.
 ``pred_step`` is the eval forward with the argmax on the device (the JAX
@@ -32,6 +46,7 @@ import torch
 
 from dualvgr_tpu_torch.models.dualvgr import DualVGR
 from dualvgr_tpu_torch.ops.losses import dualvgr_total_loss
+from dualvgr_tpu_torch.parallel.comm import all_reduce_
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int, decay_epochs: int = 10):
@@ -79,7 +94,9 @@ def make_optimizer(base_lr: float, steps_per_epoch: int, max_grad_norm: float = 
 class TrainState:
     """The model (in training mode), its optimizer, the dropout generator and
     the counts: ``step`` micro-steps taken, ``updates`` Adam updates applied,
-    ``mini_step`` micro-gradients waiting in ``acc_grads``."""
+    ``mini_step`` micro-gradients waiting in ``acc_grads``. ``placement``
+    (``parallel.tp.Placement``) says how it lies on a mesh; None in one
+    process."""
 
     model: DualVGR
     optimizer: Optimizer
@@ -89,6 +106,7 @@ class TrainState:
     updates: int = 0
     mini_step: int = 0
     acc_grads: list[torch.Tensor] = field(default_factory=list)
+    placement: object = None
 
 
 def create_train_state(model: DualVGR, optimizer: Optimizer, *, seed: int = 0) -> TrainState:
@@ -146,18 +164,27 @@ def forward_backward(state: TrainState, batch, *, alpha: float, beta: float) -> 
     model = state.model
     app, mot, q, qlen, answers, valid = _unpack(batch, next(model.parameters()).device)
     model.zero_grad(set_to_none=True)
+    data = state.placement.data if state.placement is not None else None
+    count = all_reduce_(valid.sum(), data) if data is not None else None
     out = model(app, mot, q, qlen, valid, generator=state.generator)
     total, aux = dualvgr_total_loss(
         out.logits, answers, out.aq_fusion, out.com_app, out.mq_fusion, out.com_motion,
         alpha=alpha, beta=beta, num_of_nodes=model.visual_input_unit.num_of_nodes, valid=valid,
+        count=count,
     )
+    if state.placement is not None:
+        state.placement.before_backward()
     total.backward()
     with torch.no_grad():
         correct = ((out.logits.argmax(dim=1) == answers) * valid).sum()
+        metrics = torch.stack([total.detach(), aux["ce"].detach(), aux["common"].detach(),
+                               aux["dependence"].detach(), correct.float()])
+        if data is not None:  # each rank's share: the global batch's are their sums
+            all_reduce_(metrics, data)
+        loss, ce, common, dep, correct = metrics.unbind()
     return {
-        "loss": total.detach(), "ce": aux["ce"].detach(), "common": aux["common"].detach(),
-        "dependence": aux["dependence"].detach(), "correct": correct,
-        "count": valid.sum().to(torch.int32),
+        "loss": loss, "ce": ce, "common": common, "dependence": dep, "correct": correct,
+        "count": (count if count is not None else valid.sum()).to(torch.int32),
     }
 
 
@@ -165,9 +192,11 @@ def forward_backward(state: TrainState, batch, *, alpha: float, beta: float) -> 
 def apply_gradients(state: TrainState) -> None:
     """Accumulate the gradients in ``.grad`` or, at the end of a window,
     clip them and take one Adam step at the schedule's learning rate."""
-    opt = state.optimizer
-    params = list(state.model.parameters())
+    opt, pl = state.optimizer, state.placement
+    params = [p.param for p in pl.params] if pl is not None else list(state.model.parameters())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    if pl is not None:
+        pl.reduce_gradients(grads)
     state.step += 1
     if opt.grad_accum > 1:
         # running mean, as optax.MultiSteps accumulates
@@ -178,13 +207,19 @@ def apply_gradients(state: TrainState) -> None:
             return
         grads = [acc.clone() for acc in state.acc_grads]
         reset_grad_accum(state)
-    g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if pl is not None:
+        g_norm = pl.grad_norm(grads)
+    else:
+        g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     clipped = g_norm >= opt.max_grad_norm
     for p, g in zip(params, grads):
         p.grad = torch.where(clipped, g / g_norm * opt.max_grad_norm, g)
     for group in state.adam.param_groups:
         group["lr"] = opt.lr(state.updates)
-    state.adam.step()
+    if pl is not None and pl.zero:
+        pl.zero_step(state.adam)
+    else:
+        state.adam.step()
     state.updates += 1
 
 

@@ -18,6 +18,12 @@ its directory layout:
   ``updates``, ``mini_step``, ``acc_grads`` and ``generator`` (the dropout
   generator's ``get_state()``).
 
+A state placed on a mesh (``parallel.tp.place_state``) is saved whole:
+every rank takes part in gathering its shards and slices, rank 0 alone
+writes, and the others wait for the file at a barrier; the file is the one
+a single process writes. It is restored into an unplaced state, on rank 0
+alone, and placed after (``place_state`` broadcasts it).
+
 The file holds only tensors, numbers, strings, lists and dicts, so
 ``torch.load(..., weights_only=True)`` reads it. A restore is bit-exact on
 every field. As in the JAX package, a resumed run replays the restored
@@ -30,6 +36,7 @@ import json
 import os
 
 import torch
+import torch.distributed as dist
 
 from dualvgr_tpu_torch.train_lib import TrainState
 
@@ -52,29 +59,40 @@ def saved_epoch(ckpt_dir: str) -> int | None:
         return -1
 
 
-def _to_cpu(obj):
+def to_cpu(obj):
+    """``obj`` with every tensor in it (through dicts, lists, tuples) detached on the CPU."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu()
     if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
+        return {k: to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_cpu(v) for v in obj)
+        return type(obj)(to_cpu(v) for v in obj)
     return obj
 
 
 def save_checkpoint(ckpt_dir: str, epoch: int, state: TrainState, model_kwargs: dict):
-    """Write the train state + model_kwargs under {ckpt_dir}/model."""
+    """Write the train state + model_kwargs under {ckpt_dir}/model (a
+    placed state: collective, written by rank 0)."""
+    if state.placement is not None:
+        from dualvgr_tpu_torch.parallel.tp import full_state_dicts
+
+        model_sd, opt_sd, acc = full_state_dicts(state)
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return
+    else:
+        model_sd, opt_sd, acc = state.model.state_dict(), state.adam.state_dict(), state.acc_grads
     path = os.path.abspath(os.path.join(ckpt_dir, "model"))
     os.makedirs(path, exist_ok=True)
     payload = {
         "epoch": int(epoch),
-        "state_dict": _to_cpu(state.model.state_dict()),
-        "optimizer": _to_cpu(state.adam.state_dict()),
+        "state_dict": to_cpu(model_sd),
+        "optimizer": to_cpu(opt_sd),
         "model_kwargs": dict(model_kwargs),
         "step": int(state.step),
         "updates": int(state.updates),
         "mini_step": int(state.mini_step),
-        "acc_grads": _to_cpu(state.acc_grads),
+        "acc_grads": to_cpu(acc),
         "generator": state.generator.get_state(),
     }
     tmp = os.path.join(path, _STATE_FILE + ".tmp")
@@ -84,6 +102,8 @@ def save_checkpoint(ckpt_dir: str, epoch: int, state: TrainState, model_kwargs: 
         json.dump(model_kwargs, f, indent=2)
     with open(os.path.join(path, _META_FILE), "w") as f:
         json.dump({"epoch": int(epoch), "step": int(state.step)}, f)
+    if state.placement is not None:
+        dist.barrier()
 
 
 def load_model_kwargs(ckpt_dir: str) -> dict:

@@ -13,7 +13,12 @@ validate.py:281-284), runs the test split, and prints overall and
 per-category accuracy; with ``test.write_preds`` it writes
 ``preds/test_preds.json`` and prints 10 samples (validate.py:328-363). It
 runs on the CUDA device unless ``--device cpu`` is given; there is no
-fallback.
+fallback. Under a launcher (``torchrun --nproc_per_node N -m
+dualvgr_tpu_torch.validate ...``) rank 0 reads the checkpoint and the
+state is broadcast and placed as the config's ``tpu`` keys say; each rank
+gathers and evaluates its rows of every test batch (the loader's
+host-sharded mode), the predictions are gathered, and rank 0 alone writes
+the predictions file.
 """
 
 from __future__ import annotations
@@ -26,10 +31,14 @@ import os
 import pickle
 import sys
 
+import torch.distributed as dist
+
 from dualvgr_tpu_torch import train_lib, validate_lib
 from dualvgr_tpu_torch.config import cfg_from_file, model_runtime_kwargs, resolve_dataset_paths
 from dualvgr_tpu_torch.models.dualvgr import build_model as build_dualvgr
-from dualvgr_tpu_torch.train import make_loader
+from dualvgr_tpu_torch.parallel.mesh import maybe_initialize_distributed
+from dualvgr_tpu_torch.parallel.tp import mesh_for, place_state
+from dualvgr_tpu_torch.train import host_sharding, make_loader
 from dualvgr_tpu_torch.utils.checkpoint import load_model_kwargs, restore_checkpoint
 from dualvgr_tpu_torch.utils.device import resolve_device
 from dualvgr_tpu_torch.utils.logging import colored, setup_logging
@@ -40,8 +49,11 @@ def run(cfg, unit_layers: int, *, device="cuda", feature_stores=None):
     it) on its test split. ``feature_stores``: an optional (appearance,
     motion) pair of FeatureStores in place of the HDF5 files. Prints the
     accuracies and returns (acc, *category accuracies)."""
+    maybe_initialize_distributed(device)
     dev = resolve_device(device)
     runtime = model_runtime_kwargs(cfg, dev)
+    mesh = mesh_for(cfg, dev)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     cfg = copy.deepcopy(cfg)
     cfg.dataset.save_dir = os.path.join(cfg.dataset.save_dir, cfg.exp_name)
     ckpt_dir = os.path.join(cfg.dataset.save_dir, "ckpt")
@@ -50,7 +62,8 @@ def run(cfg, unit_layers: int, *, device="cuda", feature_stores=None):
     cfg = resolve_dataset_paths(cfg)
 
     test_loader = make_loader(cfg, cfg.dataset.test_question_pt, shuffle=False, device=dev,
-                              feature_stores=feature_stores, test_num=cfg.test.test_num)
+                              feature_stores=feature_stores, test_num=cfg.test.test_num,
+                              **host_sharding(cfg, mesh))
 
     # rebuild the model from the saved kwargs + fresh vocab + CLI
     # unit_layers (reference validate.py:281-284)
@@ -81,11 +94,15 @@ def run(cfg, unit_layers: int, *, device="cuda", feature_stores=None):
     optimizer = train_lib.make_optimizer(cfg.train.lr, len(test_loader),
                                          grad_accum=int(cfg.tpu.get("grad_accum", 1)))
     state = train_lib.create_train_state(model, optimizer, seed=cfg.seed)
-    _, state = restore_checkpoint(ckpt_dir, state)
+    if rank0:  # the others take it from rank 0 in place_state
+        _, state = restore_checkpoint(ckpt_dir, state)
+    state = place_state(state, mesh)
 
     cat_names = validate_lib.category_names(cfg.dataset.name)
     out = validate_lib.validate(cfg, train_lib.pred_step, state, test_loader, write_preds=cfg.test.write_preds,
-                                device=dev, prefetch=cfg.tpu.prefetch)
+                                device=dev, prefetch=cfg.tpu.prefetch, mesh=mesh)
+    if not rank0:
+        return out if not cfg.test.write_preds else (out[0], *out[5:])
     if cfg.test.write_preds:
         acc, preds, gts, v_ids, q_ids, *cat_accs = out
     else:
@@ -142,7 +159,11 @@ def main(argv=None):
     if not os.path.exists(cfg.dataset.data_dir):
         raise FileNotFoundError(f"dataset.data_dir {cfg.dataset.data_dir!r} does not exist")
     setup_logging()
-    return run(cfg, args.unit_layers, device=args.device)[0]
+    try:
+        return run(cfg, args.unit_layers, device=args.device)[0]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

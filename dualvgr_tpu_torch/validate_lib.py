@@ -23,7 +23,8 @@ import collections
 import numpy as np
 import torch
 
-from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+from dualvgr_tpu_torch.parallel.comm import all_gather_cat
+from dualvgr_tpu_torch.parallel.mesh import mesh_axis, prefetch_to_device
 
 SVQA_CATEGORY_NAMES = [
     "count", "exist", "query_color", "query_size", "query_actiontype",
@@ -40,7 +41,8 @@ def _safe_div(a, b):
     return float(a) / float(b) if b else 0.0
 
 
-def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu", prefetch: int = 2):
+def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu", prefetch: int = 2,
+             mesh=None):
     """Run a full eval pass.
 
     eval_fn(state, (app, motion, question, qlen)) -> logits (B, A) or
@@ -48,9 +50,18 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu
     pred_step`` is the one to use: only B ints cross to the host per batch).
     Batches come from a VideoQADataLoader; their inputs are copied to
     ``device`` ``prefetch`` batches ahead (``prefetch_to_device``; on the
-    CPU a pass-through). Returns reference-ordered tuples
-    (validate.py:226-235).
+    CPU a pass-through). With ``mesh`` (every rank of it calls this) the
+    loader is host-sharded over the data axis ``cfg.tpu.mesh_axis``
+    (``host_count`` the axis's size): each rank gathers, copies and
+    evaluates only its rows of each global batch, and the predictions and
+    the rows' small fields (answer, valid, first token, category, ids) are
+    all-gathered, so every rank counts the whole batch.
+    Returns reference-ordered tuples (validate.py:226-235).
     """
+    axis = mesh_axis(mesh, cfg.tpu.mesh_axis) if mesh is not None else None
+    if axis is not None and getattr(loader, "host_count", 1) != axis.size:
+        raise ValueError(f"validation on a data axis of {axis.size} needs a loader sharded over it "
+                         f"(host_count {getattr(loader, 'host_count', 1)})")
     name = cfg.dataset.name
     all_agree, all_preds_idx, all_gts_idx = [], [], []
     all_first_tok, all_cats, all_vids, all_qids = [], [], [], []
@@ -62,11 +73,14 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu
             pending.append(b)
             yield (b.appearance_feat, b.motion_feat, b.question, b.question_len)
 
-    for inputs in prefetch_to_device(host_inputs(), device, prefetch):
+    for inputs in prefetch_to_device(host_inputs(), device, prefetch, local=axis is not None):
         batch = pending.popleft()
         out = eval_fn(state, inputs)
-        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
-        preds = out.argmax(1) if out.ndim == 2 else out
+        if axis is not None:
+            preds, batch = _gather_rows(out, batch, axis, device)
+        else:
+            out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+            preds = out.argmax(1) if out.ndim == 2 else out
         keep = batch.valid > 0
         all_agree.append((preds == batch.answer)[keep])
         all_preds_idx.append(preds[keep])
@@ -103,6 +117,25 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu
     v_ids = [int(v) for v in np.concatenate(all_vids)]
     q_ids = [int(q) for q in np.concatenate(all_qids)]
     return (acc, all_pred_strs, gt_strs, v_ids, q_ids, *cat_accs)
+
+
+def _gather_rows(out, batch, axis, device):
+    """This rank's predictions and the small fields of its rows of a batch,
+    all-gathered over ``axis``: the global batch's, in row order (rank r
+    holds block r). Returns (predictions, the batch with those fields
+    whole; its features stay this rank's)."""
+    preds = torch.as_tensor(out, device=device)
+    preds = preds.argmax(1) if preds.ndim == 2 else preds
+    cat = batch.question_category if batch.question_category is not None else np.zeros_like(batch.answer)
+    cols = (batch.answer, batch.valid, batch.question[:, 0], cat, batch.video_idx, batch.question_idx)
+    local = torch.stack([preds.to(torch.int64)] + [torch.as_tensor(np.asarray(c), device=device).to(torch.int64)
+                                                    for c in cols], 1)
+    whole = all_gather_cat(local, axis, 0).cpu().numpy()
+    return whole[:, 0], batch._replace(
+        answer=whole[:, 1].astype(batch.answer.dtype), valid=whole[:, 2].astype(batch.valid.dtype),
+        question=whole[:, 3:4].astype(batch.question.dtype),
+        question_category=None if batch.question_category is None else whole[:, 4].astype(cat.dtype),
+        video_idx=whole[:, 5], question_idx=whole[:, 6])
 
 
 def category_names(dataset_name: str):

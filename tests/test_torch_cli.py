@@ -12,8 +12,9 @@ On the conftest ``synth_dir`` SVQA fixture, with ``--device cpu``:
   ``tpu.log_every`` steps and at each epoch's end;
 * with ``tpu.grad_accum: 2`` the logged lr is the JAX train.py's formula
   across the decay at epoch 10;
-* the data keys reach the loaders; an unknown ``graph_module``, the still
-  unported ``tpu`` keys and a JAX ``prng_impl`` are refused;
+* the data keys reach the loaders; an unknown ``graph_module``, a data
+  axis named "model", ``tensor_parallel`` in one process and a JAX
+  ``prng_impl`` are refused, ``zero_opt`` in one process is accepted;
 * a config without ``graph_module`` trains and validates the default GCN
   model, records "GCN" in ``model_kwargs.json``, and the export and the
   HTTP front's checkpoint loader build the GCN from it;
@@ -178,15 +179,25 @@ def test_data_keys_reach_the_loaders(synth_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("section,key,value,error", [
     (None, "graph_module", "BOGUS", ValueError),
-    ("tpu", "mesh_axis", "model", NotImplementedError),
-    ("tpu", "tensor_parallel", 2, NotImplementedError),
-    ("tpu", "zero_opt", True, NotImplementedError),
+    ("tpu", "mesh_axis", "model", ValueError),
+    ("tpu", "tensor_parallel", 2, ValueError),
+    ("tpu", "zero_opt", True, None),
     ("tpu", "prng_impl", "threefry2x32", NotImplementedError),
 ])
 def test_clis_refuse_what_the_port_does_not_build(synth_dir, tmp_path, section, key, value, error):
-    cfg = cli_cfg(synth_dir, tmp_path)
+    """What no run can build is refused before anything is written: an
+    unknown graph module, a data axis named as the model axis, a tensor
+    parallel degree that does not divide the ranks (one process here), a
+    JAX generator. ``zero_opt`` is accepted: in one process it has nothing
+    to shard, and the run trains and saves."""
+    cfg = cli_cfg(synth_dir, tmp_path, max_epochs=1)
     (cfg[section] if section else cfg)[key] = value
-    match = "unknown graph_module" if key == "graph_module" else f"tpu.{key}"
+    if error is None:
+        ttrain.train(cfg, device="cpu")
+        assert os.path.exists(os.path.join(cfg.dataset.save_dir, "ckpt"))
+        return
+    match = {"graph_module": "unknown graph_module", "mesh_axis": "model axis",
+             "tensor_parallel": "does not divide the 1 available devices"}.get(key, f"tpu.{key}")
     with pytest.raises(error, match=match):
         ttrain.train(cfg, device="cpu")
     assert not os.path.exists(os.path.join(cfg.dataset.save_dir, "ckpt"))

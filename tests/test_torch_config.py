@@ -83,18 +83,42 @@ CLI_TPU_KEYS = {"feature_cache_gb", "prefetch", "transfer_dtype", "log_every", "
                    "autosave", "metrics_jsonl"}
 
 
-@pytest.mark.parametrize("key,value", [("mesh_axis", "model"), ("zero_opt", True), ("tensor_parallel", 2)])
-def test_unhonoured_tpu_keys_parse_but_are_refused(key, value):
-    """A tpu key the port does not honour yet (the multi-device ones)
-    parses, and is refused by ``model_runtime_kwargs`` rather than silently
-    ignored; the keys the CLIs read are not refused."""
+@pytest.mark.parametrize("key,value", [("mesh_axis", "batch"), ("zero_opt", True), ("tensor_parallel", 2)])
+def test_multi_device_tpu_keys_are_honoured(key, value, tmp_path, caplog):
+    """The multi-device tpu keys, which the port refused before it had
+    multi-device, are honoured: ``mesh_axis`` names the mesh's data axis,
+    ``zero_opt`` is accepted (and places a state in a one-rank group),
+    ``tensor_parallel: 2`` turns the kernels off with the JAX package's
+    warning; every key the port does not hand to the CLIs is one of the
+    multi-device keys or a model argument."""
+    import torch.distributed as dist
+
+    from dualvgr_tpu_torch import build_model
+    from dualvgr_tpu_torch.parallel.tp import mesh_for, place_state
+    from dualvgr_tpu_torch.train_lib import create_train_state, make_optimizer
+
     cfg = tconfig.default_config()
-    assert key in tconfig.UNHONOURED_TPU_KEYS
     cfg.tpu[key] = value
-    with pytest.raises(NotImplementedError, match=f"tpu.{key}"):
-        tconfig.model_runtime_kwargs(cfg, "cpu")
-    assert set(tconfig.UNHONOURED_TPU_KEYS) == (
-        set(cfg.tpu) - {"compute_dtype", "use_pallas", "prng_impl"} - CLI_TPU_KEYS)
+    cfg.tpu.use_pallas = True
+    with caplog.at_level("WARNING"):
+        kw = tconfig.model_runtime_kwargs(cfg, "cpu")
+    assert kw == {"use_kernels": key != "tensor_parallel", "compute_dtype": "float32"}
+    assert ("forces the plain (non-kernel) execution path" in caplog.text) == (key == "tensor_parallel")
+    assert set(cfg.tpu) - {"compute_dtype", "use_pallas", "prng_impl"} - CLI_TPU_KEYS == {
+        "mesh_axis", "tensor_parallel", "zero_opt"}
+    if key == "tensor_parallel":
+        return
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        mesh = mesh_for(cfg, "cpu")
+        assert mesh.mesh_dim_names == (cfg.tpu.mesh_axis,)
+        model = build_model(device="cpu", vision_dim=12, module_dim=16, word_dim=8, question_vocab_size=20,
+                            num_answers=5, num_of_nodes=4)
+        state = place_state(create_train_state(model, make_optimizer(1e-3, 10)), mesh,
+                            zero_opt=cfg.tpu.zero_opt)
+        assert state.placement.data.name == cfg.tpu.mesh_axis and state.placement.zero == cfg.tpu.zero_opt
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("key,value", [("transfer_dtype", "bfloat16"), ("prefetch", 4), ("grad_accum", 2),

@@ -4,9 +4,10 @@
   projection modules, the port's probe, the data layer with the native
   gather and the fixture generator, the CLIs, validation and checkpoints,
   the export, the HTTP front, the tokenizer, the checkpoint interchange,
-  the FLOP count, the zoos, the backbones, the preprocessing, predict and
-  the extraction bench included) and ``chip_smoke`` loads none of jax,
-  flax, orbax, the JAX package ``dualvgr_tpu``, ``benchmarks``,
+  the FLOP count, the zoos, the backbones, the preprocessing, predict,
+  the extraction bench and the multi-device layer included) and
+  ``chip_smoke`` loads none of jax, flax, orbax, the JAX package
+  ``dualvgr_tpu``, ``benchmarks``,
   ``preprocess``, ``nltk``, ``h5py``, ``ml_dtypes``, ``cv2`` or ``PIL``,
   and runs no CLI's ``main``.
 * The entry points default to ``device="cuda"`` and raise on a machine
@@ -41,7 +42,8 @@ def test_port_imports_no_jax():
         print(len(mods), bad)
         assert not bad, bad
         for m in ("ops.precision", "ops.proj_kernel", "bench.proj_probe", "data.vocab", "data.features",
-                  "data.loader", "data.check", "parallel.mesh", "train", "validate", "validate_lib",
+                  "data.loader", "data.check", "parallel.mesh", "parallel.tp", "parallel.comm", "parallel.dryrun",
+                  "train", "validate", "validate_lib",
                   "utils.checkpoint", "utils.logging", "export", "serve", "data.questions",
                   "utils.port_reference", "utils.flops", "models.graph_zoo", "models.attention_zoo",
                   "models.utils_zoo", "models.fusions", "data.native", "data.synthetic",
@@ -94,6 +96,7 @@ def test_predict_fn_and_engine_refuse_cuda_without_it():
 def test_deployment_clis_default_to_cuda_and_raise_without_it(synth_dir, tmp_path):
     _no_cuda()
     from dualvgr_tpu_torch import ReplicatedEngine, export, serve
+    from dualvgr_tpu_torch.parallel import dryrun
     from dualvgr_tpu_torch.serving import per_device_predict_fns
     from dualvgr_tpu_torch.utils import port_reference
 
@@ -110,5 +113,7 @@ def test_deployment_clis_default_to_cuda_and_raise_without_it(synth_dir, tmp_pat
         export.load_artifact(str(tmp_path / "x.dvgr"))
     with pytest.raises(RuntimeError, match="cuda"):
         ReplicatedEngine([lambda *a: a])
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.main(["--nproc", "2"])
     with pytest.raises(ValueError, match="device_count"):
         per_device_predict_fns(str(tmp_path / "x.dvgr"), devices=["cuda:0"])

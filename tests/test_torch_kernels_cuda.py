@@ -16,7 +16,9 @@ and 6, kernel 1 with bf16 gates) may differ from the plain version by one
 bf16 rounding step of the reference's magnitude, where a sum taken in
 another order crosses a rounding boundary, plus the fp32 tolerance for
 values near zero. The last tests hold ``prefetch_to_device`` (pinned
-batches copied on a side stream) to the loader's host batches, exactly.
+batches copied on a side stream) to the loader's host batches, exactly,
+and two gloo ranks sharing the card (``parallel/dryrun.py``) to one
+process's train step.
 """
 
 import ctypes
@@ -810,3 +812,24 @@ def test_the_native_gather_fills_a_pinned_batch(cuda, dtype):
         assert torch.equal(out.to(cuda, non_blocking=True).cpu(), out)
     with pytest.raises(ValueError):
         native.gather_rows(src.to(cuda), rows)
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
+    """Data parallel over two gloo ranks on cuda:0 (NCCL refuses two ranks
+    on one device), kernels on: each step's loss, the updated-parameter
+    checksum and the eval step's predictions against one process's step on
+    the same global batches, the second with 3 of 8 rows padded (the fp32
+    train limits: 1e-4 relative); kernels 3 and 4 launch 3 times a step on
+    each rank, kernels 1 and 2 three and two times an eval forward."""
+    from dualvgr_tpu_torch.parallel import dryrun
+
+    batches = dryrun.tiny_batches(1, seed=11) + dryrun.tiny_batches(1, seed=12, pad=3)
+    spec = dict(device="cuda", batches=batches, eval=True, tpu=dict(use_pallas=True))
+    one = dryrun.run_steps(spec)
+    ranks = [r[0] for r in dryrun.spawn(dryrun.steps_on_rank, 2, ([spec],), device="cuda", timeout=300)]
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-4)
+        np.testing.assert_allclose(r["checksum"], one["checksum"], rtol=1e-4)
+        np.testing.assert_array_equal(r["preds"], one["preds"])
+        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0) == one["launches_train"]
+        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0) == one["launches_eval"]
