@@ -93,8 +93,9 @@ def run_steps(spec: dict) -> dict:
     eval step, and report them.
 
     ``spec``: ``dims`` (model kwargs), ``seed``, ``state_dict`` (optional),
-    ``device``, ``tpu`` (``cfg.tpu`` keys, from which the model's kernels
-    and dtype, the mesh and ZeRO-1 are taken as the CLIs take them:
+    ``device`` (the card unless ``"cpu"``), ``tpu`` (``cfg.tpu`` keys, from
+    which the model's kernels and dtype, the mesh and ZeRO-1 are taken as
+    the CLIs take them:
     ``config.model_runtime_kwargs``, ``parallel.mesh_for``; the warnings
     logged on the way are in the result), ``dropout`` (False sets every
     rate to 0), ``lr``, ``grad_accum``, ``alpha``, ``beta``, ``batches``
@@ -117,7 +118,7 @@ def run_steps(spec: dict) -> dict:
     )
     from dualvgr_tpu_torch.train_lib import create_train_state, make_optimizer, pred_step, train_step
 
-    dev = spec.get("device", "cpu")
+    dev = spec.get("device", "cuda")
     cfg = default_config()
     cfg.tpu.update(spec.get("tpu", {}))
     axis = cfg.tpu.mesh_axis
@@ -221,13 +222,16 @@ def _rank_main(rank, world, init_file, out_file, device, fn, args):
     torch.save(out, out_file)
 
 
-def spawn(fn, nproc: int, args=(), *, device: str = "cpu", timeout: float = 120.0) -> list:
+def spawn(fn, nproc: int, args=(), *, device: str = "cuda", timeout: float = 120.0) -> list:
     """Run ``fn(rank, world, *args)`` on ``nproc`` spawned ranks in a gloo
     group joined through a ``file://`` store (every rank on ``cuda:0`` with
-    a CUDA ``device``, one CPU thread each on the CPU). Returns each rank's
-    result in rank order. Raises the first rank's error, or TimeoutError
-    (after killing every rank) when ``timeout`` seconds pass."""
+    a CUDA ``device``, one CPU thread each with ``device="cpu"``; CUDA
+    asked for on a machine without it raises, ``resolve_device``). Returns
+    each rank's result in rank order. Raises the first rank's error, or
+    TimeoutError (after killing every rank) when ``timeout`` seconds pass."""
     import torch.multiprocessing as mp
+
+    device = resolve_device(device)
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="dualvgr_dryrun_") as tmp:

@@ -25,6 +25,7 @@ import torch
 
 from dualvgr_tpu_torch.parallel.comm import all_gather_cat
 from dualvgr_tpu_torch.parallel.mesh import mesh_axis, prefetch_to_device
+from dualvgr_tpu_torch.utils.device import resolve_device
 
 SVQA_CATEGORY_NAMES = [
     "count", "exist", "query_color", "query_size", "query_actiontype",
@@ -41,7 +42,7 @@ def _safe_div(a, b):
     return float(a) / float(b) if b else 0.0
 
 
-def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu", prefetch: int = 2,
+def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cuda", prefetch: int = 2,
              mesh=None):
     """Run a full eval pass.
 
@@ -50,7 +51,9 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu
     pred_step`` is the one to use: only B ints cross to the host per batch).
     Batches come from a VideoQADataLoader; their inputs are copied to
     ``device`` ``prefetch`` batches ahead (``prefetch_to_device``; on the
-    CPU a pass-through). With ``mesh`` (every rank of it calls this) the
+    CPU a pass-through). ``device`` is the card unless the caller names the
+    CPU, and CUDA asked for on a machine without it raises
+    (``resolve_device``). With ``mesh`` (every rank of it calls this) the
     loader is host-sharded over the data axis ``cfg.tpu.mesh_axis``
     (``host_count`` the axis's size): each rank gathers, copies and
     evaluates only its rows of each global batch, and the predictions and
@@ -58,6 +61,7 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cpu
     all-gathered, so every rank counts the whole batch.
     Returns reference-ordered tuples (validate.py:226-235).
     """
+    device = resolve_device(device)
     axis = mesh_axis(mesh, cfg.tpu.mesh_axis) if mesh is not None else None
     if axis is not None and getattr(loader, "host_count", 1) != axis.size:
         raise ValueError(f"validation on a data axis of {axis.size} needs a loader sharded over it "

@@ -16,6 +16,11 @@ artifacts:
   (``from_jax_variables``) on SVQA (15 buckets) and msvd-qa (5 buckets),
   with and without ``write_preds``;
 * ``data.check``: the same errors and warnings, and the same exit codes.
+
+The JAX loader and store gather and cast through the JAX package's native
+library when it loads and through numpy when it does not; here they run on
+a library of the module's own, always loaded (``test_torch_native.
+jax_native_of_its_own``), so the JAX side takes one path in every worker.
 """
 
 import os
@@ -43,11 +48,18 @@ from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
 from dualvgr_tpu_torch.utils.weights import from_jax_variables
 
 from test_torch_model import random_variables
+from test_torch_native import jax_native_of_its_own
 
 FEATURES = ("appearance_feat", "motion_feat")
 # a validation row counts in the comparison only if the JAX logits' top-2
 # margin is at least this: fp32 sums in another order may flip a closer tie
 TIE_MARGIN = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library(tmp_path_factory):
+    with jax_native_of_its_own(str(tmp_path_factory.mktemp("jax_native"))):
+        yield
 
 
 def loader_args(d, name="svqa", split="train", **kw):
@@ -291,14 +303,14 @@ def test_validation_returns_the_jax_accuracy_tuple(synth_dir, msvd_dir, dataset)
         ties |= {int(q) for q, m, v in zip(b.question_idx, top2[:, 1] - top2[:, 0], b.valid) if v and m < TIE_MARGIN}
     print(f"{len(ties)} validation rows within {TIE_MARGIN} of a tie left out of the comparison (expected 0)")
     want = jvalidate.validate(jcfg, jtrain.jit_pred_step(jmodel), jstate, jl, write_preds=True)
-    got = validate_lib.validate(cfg, pred_step, state, pl, write_preds=True)
+    got = validate_lib.validate(cfg, pred_step, state, pl, write_preds=True, device="cpu")
     assert state.model.training  # pred_step put it back in training mode
     assert got[2:5] == want[2:5]  # ground truths, video and question ids
     rows = [i for i, q in enumerate(want[4]) if q not in ties]
     assert [got[1][i] for i in rows] == [want[1][i] for i in rows]  # the predicted answers
     if not ties:
         assert got == want
-        plain = validate_lib.validate(cfg, pred_step, state, pl)
+        plain = validate_lib.validate(cfg, pred_step, state, pl, device="cpu")
         assert plain == jvalidate.validate(jcfg, jtrain.jit_pred_step(jmodel), jstate, jl)
         assert plain == (want[0], *want[5:])
     assert len(got) == 5 + (15 if dataset == "svqa" else 5)

@@ -95,7 +95,8 @@ def test_predict_fn_and_engine_refuse_cuda_without_it():
 
 def test_deployment_clis_default_to_cuda_and_raise_without_it(synth_dir, tmp_path):
     _no_cuda()
-    from dualvgr_tpu_torch import ReplicatedEngine, export, serve
+    from dualvgr_tpu_torch import ReplicatedEngine, export, serve, validate_lib
+    from dualvgr_tpu_torch.config import default_config
     from dualvgr_tpu_torch.parallel import dryrun
     from dualvgr_tpu_torch.serving import per_device_predict_fns
     from dualvgr_tpu_torch.utils import port_reference
@@ -115,5 +116,11 @@ def test_deployment_clis_default_to_cuda_and_raise_without_it(synth_dir, tmp_pat
         ReplicatedEngine([lambda *a: a])
     with pytest.raises(RuntimeError, match="cuda"):
         dryrun.main(["--nproc", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.spawn(dryrun.steps_on_rank, 2, ([{}],))
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.run_steps({})
+    with pytest.raises(RuntimeError, match="cuda"):
+        validate_lib.validate(default_config(), None, None, None)
     with pytest.raises(ValueError, match="device_count"):
         per_device_predict_fns(str(tmp_path / "x.dvgr"), devices=["cuda:0"])

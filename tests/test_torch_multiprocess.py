@@ -88,7 +88,7 @@ def dp2(jax_case):
     jspec = dict(device="cpu", dims=kw, state_dict=from_jax_variables(variables), dropout=False, lr=LR,
                  alpha=ALPHA, beta=BETA, batches=[data, data], full_state=True)
     specs = [SPEC, dict(SPEC, tpu=dict(zero_opt=True)), jspec, dict(SPEC, bucket_mb=2**-10)]
-    runs = dryrun.spawn(dryrun.steps_on_rank, 2, (specs,), timeout=TIMEOUT)
+    runs = dryrun.spawn(dryrun.steps_on_rank, 2, (specs,), device="cpu", timeout=TIMEOUT)
     return [[r[i] for r in runs] for i in range(len(specs))]
 
 
@@ -96,7 +96,7 @@ def dp2(jax_case):
 def world4():
     """Four ranks: DP-4, then TP (2, 2) + ZeRO-1."""
     specs = [SPEC, dict(SPEC, tpu=dict(tensor_parallel=2, zero_opt=True))]
-    runs = dryrun.spawn(dryrun.steps_on_rank, 4, (specs,), timeout=TIMEOUT)
+    runs = dryrun.spawn(dryrun.steps_on_rank, 4, (specs,), device="cpu", timeout=TIMEOUT)
     return [[r[i] for r in runs] for i in range(2)]
 
 
@@ -220,7 +220,7 @@ def cli_runs(synth_dir, tmp_path_factory):
         for c in (cfg1, cfg2):
             c.train.max_epochs, c.train.restore = epochs, restore
         best1, state1 = ttrain.train(cfg1, device="cpu")
-        ranks = dryrun.spawn(dryrun.train_cli_on_rank, 2, (cfg2, "cpu"), timeout=TIMEOUT)
+        ranks = dryrun.spawn(dryrun.train_cli_on_rank, 2, (cfg2, "cpu"), device="cpu", timeout=TIMEOUT)
         out[epochs] = (cfg1, cfg2, best1, state1, ranks)
     return out
 
@@ -286,7 +286,7 @@ def test_two_rank_validate_cli_matches_one_process(cli_runs):
     with open(path) as f:
         want_preds = json.load(f)
     os.remove(path)
-    ranks = dryrun.spawn(dryrun.validate_cli_on_rank, 2, (cfg, 1, "cpu"), timeout=TIMEOUT)
+    ranks = dryrun.spawn(dryrun.validate_cli_on_rank, 2, (cfg, 1, "cpu"), device="cpu", timeout=TIMEOUT)
     assert [r[1] for r in ranks] == [[(0, 2)], [(1, 2)]]
     assert ranks[0][0] == want and ranks[1][0][0] == want[0]
     with open(path) as f:

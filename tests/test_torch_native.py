@@ -11,8 +11,24 @@ against the JAX package's (``dualvgr_tpu/data/native.py``) and torch.
   the canonical 0x7FC0 / 0xFFC0 instead, which the port does not follow;
 * a failed build raises with the compiler's output;
 * the port's FeatureStore and loader give the JAX loader's batches with
-  ``num_workers`` 1 and 4, through the native gather (no index_select).
+  ``num_workers`` 1 and 4, through the native gather (no index_select);
+* six processes building the port's library into one empty directory at
+  once all load it and gather right, and leave one library and no
+  temporary file (``native_build_race.py``, mode ``port``).
+
+The JAX side of every comparison here runs on a JAX library of the
+module's own (``jax_native_of_its_own``). The JAX package builds its
+``_gather.so`` in place, inside the package, and keeps ``None`` for the
+rest of a process whose first load failed; test workers that build it at
+once can dlopen each other's half-written file and fall back, and then
+the JAX gather returns ``None``. A library that does not build or load
+here fails the module instead.
 """
+
+import contextlib
+import os
+import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -21,6 +37,42 @@ import torch
 from dualvgr_tpu.data import native as jax_native
 from dualvgr_tpu.data.loader import VideoQADataLoader as JaxLoader
 from dualvgr_tpu_torch.data import FeatureStore, VideoQADataLoader, native
+from tests.native_build_race import race
+
+
+@contextlib.contextmanager
+def jax_native_of_its_own(build_dir):
+    """The JAX package's ``data/native.py`` on a library of its own: its
+    ``_build`` compiles its ``_SRC`` with its flags into ``build_dir``
+    (a path no other process writes) and ``_load`` loads it; the module's
+    ``_LIB_PATH``, ``_lib`` and ``_tried`` are restored on exit. Fails,
+    with the output of the ``g++`` command ``_build`` ran, when the
+    library does not build or load."""
+    runs = []
+
+    def run(cmd, **kw):
+        runs.append(subprocess.run(cmd, **kw))
+        return runs[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", os.path.join(build_dir, "_gather.so"))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        with pytest.MonkeyPatch.context() as build_mp:
+            build_mp.setattr(jax_native, "subprocess", types.SimpleNamespace(run=run))
+            lib = jax_native._load()
+        if lib is None:
+            said = "\n".join(f"{' '.join(p.args)} exited {p.returncode}:\n{p.stdout.decode()}{p.stderr.decode()}"
+                             for p in runs)
+            pytest.fail(f"the JAX package's native library did not build or load at {jax_native._LIB_PATH}\n"
+                        f"{said or 'the build did not finish'}")
+        yield lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_library(tmp_path_factory):
+    with jax_native_of_its_own(str(tmp_path_factory.mktemp("jax_native"))):
+        yield
 
 
 def _bits(t) -> np.ndarray:
@@ -81,6 +133,23 @@ def test_cast_is_the_jax_cast_bit_for_bit():
         np.testing.assert_array_equal(got.view(torch.int16).numpy(), want)
 
 
+def test_a_worker_that_lost_the_jax_build_race_still_compares(monkeypatch, tmp_path):
+    """The state of a worker that dlopened another's half-written
+    ``_gather.so``: the JAX gather and cast give ``None`` (where the
+    module's comparisons took the JAX library as it came, they raised
+    ``KeyError: 8`` in ``_bits``). On a library of their own they run and
+    pass, and the losing state is back afterwards."""
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", True)
+    assert jax_native.gather_rows(np.zeros((4, 3), np.float32), np.array([2, 0])) is None
+    assert jax_native.cast_f32_to_bf16(np.zeros(5, np.float32)) is None
+    with jax_native_of_its_own(str(tmp_path)):
+        for dtype in (torch.float32, torch.bfloat16):
+            test_gather_rows_is_index_select_and_the_jax_gather(dtype, 8)
+        test_cast_is_the_jax_cast_bit_for_bit()
+    assert jax_native._lib is None and jax_native._tried
+
+
 def test_cast_equals_torch_on_finite_values_and_keeps_nan_payloads():
     rs = np.random.RandomState(1)
     x = np.concatenate([SPECIAL_BITS, rs.randint(0, 2 ** 32, 8192, dtype=np.uint64).astype(np.uint32)])
@@ -115,6 +184,14 @@ def test_the_build_lands_in_the_build_dir(tmp_path):
     path = native.build(build_dir=tmp_path)
     assert path.parent == tmp_path and path.name.startswith("_gather-") and path.exists()
     assert native.build(build_dir=tmp_path) == path  # built once
+
+
+def test_six_processes_building_at_once_share_one_library(tmp_path):
+    outcomes = race("port", 6, tmp_path)
+    assert outcomes == ["ok"] * 6, outcomes
+    left = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert len([n for n in left if n.startswith("_gather-") and n.endswith(".so")]) == 1, left
+    assert not [n for n in left if n.endswith(".tmp")], left
 
 
 def _loader_args(d, qpt="svqa_train_questions.pt"):
