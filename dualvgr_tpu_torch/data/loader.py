@@ -47,6 +47,7 @@ import torch
 
 from dualvgr_tpu_torch.data.features import FeatureStore, _store_dtype
 from dualvgr_tpu_torch.data.vocab import load_vocab
+from dualvgr_tpu_torch.utils.trace import count, is_on, span
 
 # string -> id map for legacy pickles that stored category names
 # (reference DataLoader.py:29-30)
@@ -257,8 +258,15 @@ class VideoQADataLoader:
                 for idx, valid in self._batch_indices():
                     if shutdown.is_set():
                         return
-                    if not put_checked(self._make_batch(idx, valid)):
-                        return
+                    with span("loader.gather"):
+                        batch = self._make_batch(idx, valid)
+                    if is_on():
+                        count("loader.batches")
+                        count("loader.rows", len(idx))
+                        count("loader.bytes", batch.appearance_feat.nbytes + batch.motion_feat.nbytes)
+                    with span("loader.put"):
+                        if not put_checked(batch):
+                            return
             except Exception as e:  # handed to the consumer, which re-raises it
                 put_checked(_ProducerError(e))
             finally:
@@ -269,7 +277,8 @@ class VideoQADataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("loader.get"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, _ProducerError):

@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from dualvgr_tpu_torch.parallel.comm import Axis, broadcast_
+from dualvgr_tpu_torch.utils.trace import count, is_on, span
 
 # the environment a launcher (torchrun) sets for every rank
 LAUNCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
@@ -230,14 +231,18 @@ def prefetch_to_device(iterator, device="cuda", size: int = 2, *, local: bool = 
     it = iter(iterator)
 
     def copy(t):
-        return (t if t.is_pinned() else t.pin_memory()).to(dev, non_blocking=True)
+        pinned = t.is_pinned()
+        if is_on():
+            count("prefetch.bytes", t.nbytes)
+            count("prefetch.pinned", not pinned)
+        return (t if pinned else t.pin_memory()).to(dev, non_blocking=True)
 
     def enqueue() -> bool:
         try:
             item = next(it)
         except StopIteration:
             return False
-        with torch.cuda.stream(side):
+        with span("prefetch.copy"), torch.cuda.stream(side):
             moved = _map_tensors(item, copy)
             done = torch.cuda.Event()
             done.record(side)

@@ -134,7 +134,6 @@ class Request:
 class EngineStats:
     requests: int = 0
     batches: int = 0
-    occupancy_sum: int = 0
     latencies_ms: list = field(default_factory=list)
 
     def snapshot(self) -> dict:
@@ -143,7 +142,7 @@ class EngineStats:
         return {
             "requests": self.requests,
             "batches": self.batches,
-            "mean_batch": (self.occupancy_sum / self.batches) if self.batches else None,
+            "mean_batch": (self.requests / self.batches) if self.batches else None,
             "latency_ms_p50": q(0.50),
             "latency_ms_p99": q(0.99),
         }
@@ -271,7 +270,6 @@ class BatchingEngine:
             with self._lock:
                 self._stats.requests += len(batch)
                 self._stats.batches += 1
-                self._stats.occupancy_sum += len(batch)
                 for req in batch:
                     if len(self._stats.latencies_ms) < 100_000:
                         self._stats.latencies_ms.append((now - req._t_submit) * 1e3)

@@ -14,9 +14,12 @@ validation with per-category accuracy, a best-on-val checkpoint, an
 autosave at every epoch end and on SIGTERM/SIGINT at the next step
 (deleted on a clean finish), the ``tpu.metrics_jsonl`` stream and, with
 ``tpu.profile_dir``, a ``torch.profiler`` Chrome trace of the second
-epoch. It runs on the CUDA device unless ``--device cpu`` is given; there
-is no fallback. ``graph_module`` is "GCN" (the config default) or "GAT";
-any other raises the JAX package's ValueError.
+epoch and its validation, with the program's spans (``utils/trace.py``,
+the loader's producer thread's too) over the kernels they launched and
+the epoch's loader and copy counters logged. It runs on the
+CUDA device unless ``--device cpu`` is given; there is no fallback.
+``graph_module`` is "GCN" (the config default) or "GAT"; any other raises
+the JAX package's ValueError.
 
 On several GPUs, one process each:
 
@@ -56,6 +59,7 @@ from dualvgr_tpu_torch.models.dualvgr import DualVGR
 from dualvgr_tpu_torch.models.dualvgr import build_model as build_dualvgr
 from dualvgr_tpu_torch.parallel.mesh import maybe_initialize_distributed, prefetch_to_device, process_batch_bounds
 from dualvgr_tpu_torch.parallel.tp import mesh_for, place_state
+from dualvgr_tpu_torch.utils import trace
 from dualvgr_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint, saved_epoch
 from dualvgr_tpu_torch.utils.device import resolve_device
 from dualvgr_tpu_torch.utils.logging import MetricsWriter, setup_logging, train_ticker
@@ -123,6 +127,18 @@ def host_sharding(cfg, mesh) -> dict:
     lo, hi = process_batch_bounds(mesh, cfg.tpu.mesh_axis, cfg.train.batch_size)
     logging.info("host-sharded loading: rows [%d, %d) of each global batch", lo, hi)
     return dict(host_index=lo // (hi - lo), host_count=cfg.train.batch_size // (hi - lo))
+
+
+def _write_profile(profiler, profile_dir: str, epoch: int) -> None:
+    """Ends the profiled epoch: the tracer off, the profiler stopped, its
+    Chrome trace written, the epoch's counters logged."""
+    trace.disable()
+    trace.spans()  # the Chrome trace holds them
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_epoch{epoch}.json")
+    profiler.export_chrome_trace(path)
+    logging.info("wrote profiler trace to %s; the epoch's counters: %s", path, trace.counters())
 
 
 def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
@@ -218,13 +234,16 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
     logging.info("Start training........")
     for epoch in range(start_epoch, cfg.train.max_epochs):
         if profile_dir and rank0 and epoch == start_epoch + 1 and profiler is None:
-            # trace the 2nd epoch (the 1st carries the kernels' builds and
-            # the pinned-memory allocations)
+            # trace the 2nd epoch and its validation (the 1st carries the
+            # kernels' builds and the pinned-memory allocations); every
+            # thread, so the loader's producer shows its spans too
+            from torch._C._profiler import _ExperimentalConfig
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-            profiler = profile(activities=acts)
+            profiler = profile(activities=acts, experimental_config=_ExperimentalConfig(profile_all_threads=True))
             profiler.start()
+            trace.enable()  # the program's spans over the kernels they launched
         logging.info(">>>>>> epoch %d <<<<<<", epoch)
         total_correct, total_count, total_loss, logged_steps = 0, 0, 0.0, 0
         log_every = max(int(cfg.tpu.get("log_every", 1)), 1)
@@ -272,15 +291,9 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
                 )
         if rank0:
             sys.stdout.write("\n")
-        if profiler is not None:
-            profiler.stop()
-            os.makedirs(profile_dir, exist_ok=True)
-            trace = os.path.join(profile_dir, f"trace_epoch{epoch}.json")
-            profiler.export_chrome_trace(trace)
-            profiler = None
-            profile_dir = ""  # one traced epoch
-            logging.info("wrote profiler trace to %s", trace)
         if preempted:
+            if profiler is not None:
+                _write_profile(profiler, profile_dir, epoch)
             logging.warning("stopping on preemption signal (epoch %d); resume with train.restore: True", epoch)
             break
         logging.info("Epoch = %d   avg_loss = %.3f    avg_acc = %.3f", epoch,
@@ -306,6 +319,9 @@ def train(cfg, stop_event=None, *, device="cuda", feature_stores=None):
                 best_cats = cat_accs
                 save_checkpoint(ckpt_dir, epoch, state, model_kwargs_tosave(cfg))
                 logging.info("saved best checkpoint (val acc %.4f)", best_val)
+        if profiler is not None:
+            _write_profile(profiler, profile_dir, epoch)
+            profiler, profile_dir = None, ""  # one traced epoch
 
         if autosave_on:
             _autosave(epoch, "epoch end")

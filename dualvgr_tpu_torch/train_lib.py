@@ -47,6 +47,7 @@ import torch
 from dualvgr_tpu_torch.models.dualvgr import DualVGR
 from dualvgr_tpu_torch.ops.losses import dualvgr_total_loss
 from dualvgr_tpu_torch.parallel.comm import all_reduce_
+from dualvgr_tpu_torch.utils.trace import span
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int, decay_epochs: int = 10):
@@ -162,19 +163,21 @@ def forward_backward(state: TrainState, batch, *, alpha: float, beta: float) -> 
     the gradient in each parameter's ``.grad`` and returns the metrics
     ``{loss, ce, common, dependence, correct, count}``."""
     model = state.model
-    app, mot, q, qlen, answers, valid = _unpack(batch, next(model.parameters()).device)
-    model.zero_grad(set_to_none=True)
-    data = state.placement.data if state.placement is not None else None
-    count = all_reduce_(valid.sum(), data) if data is not None else None
-    out = model(app, mot, q, qlen, valid, generator=state.generator)
-    total, aux = dualvgr_total_loss(
-        out.logits, answers, out.aq_fusion, out.com_app, out.mq_fusion, out.com_motion,
-        alpha=alpha, beta=beta, num_of_nodes=model.visual_input_unit.num_of_nodes, valid=valid,
-        count=count,
-    )
-    if state.placement is not None:
-        state.placement.before_backward()
-    total.backward()
+    with span("train.forward"):
+        app, mot, q, qlen, answers, valid = _unpack(batch, next(model.parameters()).device)
+        model.zero_grad(set_to_none=True)
+        data = state.placement.data if state.placement is not None else None
+        count = all_reduce_(valid.sum(), data) if data is not None else None
+        out = model(app, mot, q, qlen, valid, generator=state.generator)
+        total, aux = dualvgr_total_loss(
+            out.logits, answers, out.aq_fusion, out.com_app, out.mq_fusion, out.com_motion,
+            alpha=alpha, beta=beta, num_of_nodes=model.visual_input_unit.num_of_nodes, valid=valid,
+            count=count,
+        )
+    with span("train.backward"):
+        if state.placement is not None:
+            state.placement.before_backward()
+        total.backward()
     with torch.no_grad():
         correct = ((out.logits.argmax(dim=1) == answers) * valid).sum()
         metrics = torch.stack([total.detach(), aux["ce"].detach(), aux["common"].detach(),
@@ -192,35 +195,38 @@ def forward_backward(state: TrainState, batch, *, alpha: float, beta: float) -> 
 def apply_gradients(state: TrainState) -> None:
     """Accumulate the gradients in ``.grad`` or, at the end of a window,
     clip them and take one Adam step at the schedule's learning rate."""
-    opt, pl = state.optimizer, state.placement
-    params = [p.param for p in pl.params] if pl is not None else list(state.model.parameters())
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-    if pl is not None:
-        pl.reduce_gradients(grads)
-    state.step += 1
-    if opt.grad_accum > 1:
-        # running mean, as optax.MultiSteps accumulates
-        for acc, g in zip(state.acc_grads, grads):
-            acc.add_((g - acc) / (state.mini_step + 1))
-        state.mini_step += 1
-        if state.mini_step < opt.grad_accum:
-            return
-        grads = [acc.clone() for acc in state.acc_grads]
-        reset_grad_accum(state)
-    if pl is not None:
-        g_norm = pl.grad_norm(grads)
-    else:
-        g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    clipped = g_norm >= opt.max_grad_norm
-    for p, g in zip(params, grads):
-        p.grad = torch.where(clipped, g / g_norm * opt.max_grad_norm, g)
-    for group in state.adam.param_groups:
-        group["lr"] = opt.lr(state.updates)
-    if pl is not None and pl.zero:
-        pl.zero_step(state.adam)
-    else:
-        state.adam.step()
-    state.updates += 1
+    with span("train.optimizer"):
+        opt, pl = state.optimizer, state.placement
+        with span("optimizer.clip"):
+            params = [p.param for p in pl.params] if pl is not None else list(state.model.parameters())
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            if pl is not None:
+                pl.reduce_gradients(grads)
+            state.step += 1
+            if opt.grad_accum > 1:
+                # running mean, as optax.MultiSteps accumulates
+                for acc, g in zip(state.acc_grads, grads):
+                    acc.add_((g - acc) / (state.mini_step + 1))
+                state.mini_step += 1
+                if state.mini_step < opt.grad_accum:
+                    return
+                grads = [acc.clone() for acc in state.acc_grads]
+                reset_grad_accum(state)
+            if pl is not None:
+                g_norm = pl.grad_norm(grads)
+            else:
+                g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            clipped = g_norm >= opt.max_grad_norm
+            for p, g in zip(params, grads):
+                p.grad = torch.where(clipped, g / g_norm * opt.max_grad_norm, g)
+        with span("optimizer.adam"):
+            for group in state.adam.param_groups:
+                group["lr"] = opt.lr(state.updates)
+            if pl is not None and pl.zero:
+                pl.zero_step(state.adam)
+            else:
+                state.adam.step()
+            state.updates += 1
 
 
 def train_step(state: TrainState, batch, *, alpha: float, beta: float) -> dict:

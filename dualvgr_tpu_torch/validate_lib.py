@@ -26,6 +26,7 @@ import torch
 from dualvgr_tpu_torch.parallel.comm import all_gather_cat
 from dualvgr_tpu_torch.parallel.mesh import mesh_axis, prefetch_to_device
 from dualvgr_tpu_torch.utils.device import resolve_device
+from dualvgr_tpu_torch.utils.trace import span
 
 SVQA_CATEGORY_NAMES = [
     "count", "exist", "query_color", "query_size", "query_actiontype",
@@ -80,11 +81,12 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cud
     for inputs in prefetch_to_device(host_inputs(), device, prefetch, local=axis is not None):
         batch = pending.popleft()
         out = eval_fn(state, inputs)
-        if axis is not None:
-            preds, batch = _gather_rows(out, batch, axis, device)
-        else:
-            out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
-            preds = out.argmax(1) if out.ndim == 2 else out
+        with span("validate.fetch"):
+            if axis is not None:
+                preds, batch = _gather_rows(out, batch, axis, device)
+            else:
+                out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+                preds = out.argmax(1) if out.ndim == 2 else out
         keep = batch.valid > 0
         all_agree.append((preds == batch.answer)[keep])
         all_preds_idx.append(preds[keep])
@@ -95,32 +97,33 @@ def validate(cfg, eval_fn, state, loader, write_preds: bool = False, device="cud
         all_vids.append(batch.video_idx[keep])
         all_qids.append(batch.question_idx[keep])
 
-    agree = np.concatenate(all_agree)
-    acc = _safe_div(agree.sum(), len(agree))
+    with span("validate.tally"):
+        agree = np.concatenate(all_agree)
+        acc = _safe_div(agree.sum(), len(agree))
 
-    if name in ("msvd-qa", "msrvtt-qa"):
-        # first-token bucketing through the vocab (validate.py:61-80)
-        itos = loader.vocab["question_idx_to_token"]
-        first = np.concatenate(all_first_tok)
-        cat_accs = []
-        for word in MSVD_BUCKETS:
-            mask = np.asarray([itos.get(int(t)) == word for t in first], dtype=bool)
-            cat_accs.append(_safe_div(agree[mask].sum(), mask.sum()))
-    else:
-        cats = np.concatenate(all_cats)
-        cat_accs = [_safe_div(agree[cats == c].sum(), (cats == c).sum()) for c in range(15)]
+        if name in ("msvd-qa", "msrvtt-qa"):
+            # first-token bucketing through the vocab (validate.py:61-80)
+            itos = loader.vocab["question_idx_to_token"]
+            first = np.concatenate(all_first_tok)
+            cat_accs = []
+            for word in MSVD_BUCKETS:
+                mask = np.asarray([itos.get(int(t)) == word for t in first], dtype=bool)
+                cat_accs.append(_safe_div(agree[mask].sum(), mask.sum()))
+        else:
+            cats = np.concatenate(all_cats)
+            cat_accs = [_safe_div(agree[cats == c].sum(), (cats == c).sum()) for c in range(15)]
 
-    if not write_preds:
-        return (acc, *cat_accs)
+        if not write_preds:
+            return (acc, *cat_accs)
 
-    answer_vocab = loader.vocab["answer_idx_to_token"]
-    preds_idx = np.concatenate(all_preds_idx)
-    gts_idx = np.concatenate(all_gts_idx)
-    all_pred_strs = [answer_vocab[int(p)] for p in preds_idx]
-    gt_strs = [answer_vocab[int(g)] for g in gts_idx]
-    v_ids = [int(v) for v in np.concatenate(all_vids)]
-    q_ids = [int(q) for q in np.concatenate(all_qids)]
-    return (acc, all_pred_strs, gt_strs, v_ids, q_ids, *cat_accs)
+        answer_vocab = loader.vocab["answer_idx_to_token"]
+        preds_idx = np.concatenate(all_preds_idx)
+        gts_idx = np.concatenate(all_gts_idx)
+        all_pred_strs = [answer_vocab[int(p)] for p in preds_idx]
+        gt_strs = [answer_vocab[int(g)] for g in gts_idx]
+        v_ids = [int(v) for v in np.concatenate(all_vids)]
+        q_ids = [int(q) for q in np.concatenate(all_qids)]
+        return (acc, all_pred_strs, gt_strs, v_ids, q_ids, *cat_accs)
 
 
 def _gather_rows(out, batch, axis, device):

@@ -4,7 +4,10 @@ On the conftest ``synth_dir`` SVQA fixture, with ``--device cpu``:
 
 * ``dualvgr_tpu_torch.train.main`` then ``.validate.main`` leave the JAX
   CLIs' file layout (best checkpoint, logs, predictions) and print
-  "Test Accuracy"; ``tpu.profile_dir`` gets a trace of the second epoch;
+  "Test Accuracy"; ``tpu.profile_dir`` gets a trace of the second epoch
+  and its validation, which holds the program's spans as ranges, the
+  loader's producer thread's too, with the epoch's loader counters logged
+  beside its path;
 * preemption, as tests/test_train.py checks it for the JAX train.py: a
   pre-set ``stop_event`` autosaves epoch -1 and stops; the restore run
   finishes, deletes the autosave and leaves a best checkpoint;
@@ -22,6 +25,7 @@ On the conftest ``synth_dir`` SVQA fixture, with ``--device cpu``:
 """
 
 import json
+import logging
 import os
 import threading
 
@@ -34,6 +38,7 @@ from dualvgr_tpu_torch import export as texport
 from dualvgr_tpu_torch import train as ttrain
 from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
+from dualvgr_tpu_torch.utils import trace
 from dualvgr_tpu_torch.utils.checkpoint import saved_epoch
 
 # the JAX train.py's record fields (its train.py:281-305 and :324-331)
@@ -86,6 +91,25 @@ def test_train_then_validate_cli(synth_dir, tmp_path, capsys):
     assert len(preds) == 15 and set(preds[0]) == {"video_id", "question_id", "video_name", "question", "answer",
                                                   "prediction"}
     assert acc == pytest.approx(np.mean([p["answer"] == p["prediction"] for p in preds]))
+
+
+def test_the_profiled_epoch_carries_the_programs_spans(synth_dir, tmp_path, caplog):
+    cfg = cli_cfg(synth_dir, tmp_path, profile_dir=str(tmp_path / "prof"))
+    with caplog.at_level(logging.INFO):
+        ttrain.train(cfg, device="cpu")
+    events = json.load(open(tmp_path / "prof" / "trace_epoch1.json"))["traceEvents"]
+    ranges = {e["name"] for e in events if e.get("ph") == "X"}
+    assert {"train.forward", "train.backward", "train.optimizer", "optimizer.clip", "optimizer.adam",
+            "loader.get", "loader.gather", "loader.put", "validate.fetch", "validate.tally"} <= ranges
+    main = {e["tid"] for e in events if e.get("name") == "train.forward"}
+    producer = {e["tid"] for e in events if e.get("name") in ("loader.gather", "loader.put")}
+    assert len(main) == 1 and producer and not producer & main  # the producer's own thread
+    names = [e["name"] for e in events if e.get("ph") == "X"]
+    assert names.count("validate.fetch") == 2 and names.count("validate.tally") == 1  # one pass, 2 batches
+    assert not trace.is_on()  # off after the epoch
+    logged = [r.getMessage() for r in caplog.records if "wrote profiler trace" in r.getMessage()]
+    # 6 training batches and 2 validation batches, of 8
+    assert len(logged) == 1 and "'loader.batches': 8," in logged[0] and "'loader.rows': 64," in logged[0]
 
 
 def test_a_config_without_graph_module_trains_the_default_gcn(synth_dir, tmp_path, capsys):

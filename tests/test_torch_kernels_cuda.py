@@ -17,7 +17,7 @@ bf16 rounding step of the reference's magnitude, where a sum taken in
 another order crosses a rounding boundary, plus the fp32 tolerance for
 values near zero. The last tests hold ``prefetch_to_device`` (pinned
 batches copied on a side stream) to the loader's host batches, exactly,
-and two gloo ranks sharing the card (``parallel/dryrun.py``) to one
+its span and counters to the items it copies, and two gloo ranks sharing the card (``parallel/dryrun.py``) to one
 process's train step.
 """
 
@@ -639,6 +639,30 @@ def test_prefetch_to_device_yields_the_host_batches(cuda, tmp_path, size):
     for g, h in zip(got, host):
         assert all(x.device.type == "cuda" for x in g)
         assert all(x.dtype == y.dtype and torch.equal(x.cpu(), y) for x, y in zip(g, h))
+
+
+def test_prefetch_traces_each_copy_and_counts_its_bytes(cuda, tmp_path):
+    """With the tracer on, ``prefetch_to_device`` records one
+    ``prefetch.copy`` an item on the calling thread, counts the bytes it
+    issues and pins each pageable leaf (the numpy fields) on the way."""
+    import threading
+
+    from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
+    from dualvgr_tpu_torch.utils import trace
+
+    loader, _, _ = _memory_loader(tmp_path)
+    host = [tuple(torch.as_tensor(x) for x in item) for item in _device_items(loader)]
+    trace.enable()
+    try:
+        got = list(prefetch_to_device(_device_items(loader), cuda, 2))
+    finally:
+        trace.disable()
+    spans, counters = trace.spans(), trace.counters()
+    copies = [s for s in spans if s.name == "prefetch.copy"]
+    assert len(got) == len(copies) == len(loader)
+    assert all(s.thread == threading.get_ident() and s.parent is None for s in copies)
+    assert counters["prefetch.bytes"] == sum(x.nbytes for item in host for x in item)
+    assert counters["prefetch.pinned"] == 5 * len(loader)  # question, qlen, answer, valid, video ids
 
 
 def test_prefetch_never_rewrites_a_pinned_batch_under_its_copy(cuda, tmp_path):
