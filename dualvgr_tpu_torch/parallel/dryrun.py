@@ -90,7 +90,8 @@ def _module_grad_norms(model, params) -> dict:
 def run_steps(spec: dict) -> dict:
     """Build a DualVGR and its train state as ``spec`` says, place it on the
     group's mesh when a process group is up, run the train steps and the
-    eval step, and report them.
+    eval step, and report them (``eager``: each train step's
+    ``train_lib.eager_reason``, None where a CUDA graph took it).
 
     ``spec``: ``dims`` (model kwargs), ``seed``, ``state_dict`` (optional),
     ``device`` (the card unless ``"cpu"``), ``tpu`` (``cfg.tpu`` keys, from
@@ -116,7 +117,7 @@ def run_steps(spec: dict) -> dict:
     from dualvgr_tpu_torch.parallel.tp import (
         BUCKET_MB, full_state_dicts, mesh_for, place_state, state_bytes, tp_sharded_leaf_count,
     )
-    from dualvgr_tpu_torch.train_lib import create_train_state, make_optimizer, pred_step, train_step
+    from dualvgr_tpu_torch.train_lib import create_train_state, eager_reason, make_optimizer, pred_step, train_step
 
     dev = spec.get("device", "cuda")
     cfg = default_config()
@@ -146,13 +147,14 @@ def run_steps(spec: dict) -> dict:
     batches = spec["make_batches"]() if "make_batches" in spec else spec["batches"]
     timed = spec.get("time", False) and torch.device(dev).type == "cuda"
     res = {"losses": [], "metrics": [], "grad_norms": [], "step_ms": [], "warnings": warnings,
-           "use_kernels": model.use_kernels}
+           "use_kernels": model.use_kernels, "eager": []}
     n0 = launch_counts()
     for b in batches:
         local = shard_batch(b, mesh, axis) if mesh is not None else b
         if timed:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
+        res["eager"].append(eager_reason(state))
         m = train_step(state, local, alpha=spec.get("alpha", 1.0), beta=spec.get("beta", 1e-8))
         if timed:
             ev[1].record()

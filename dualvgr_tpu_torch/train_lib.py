@@ -36,18 +36,44 @@ The state is updated in place; ``train_step`` returns the metrics as 0-d
 tensors on the model's device, so a loop need not wait for the card.
 ``pred_step`` is the eval forward with the argmax on the device (the JAX
 package's ``jit_pred_step``), for validation.
+
+On one CUDA card the micro-step is replayed as one CUDA graph, so that the
+card, not the host issuing a thousand launches, sets the pace. A state
+steps eagerly first (Adam's moments and the kernels' one-time set-up); from
+its second step ``train_step`` captures ``forward_backward`` and
+``apply_gradients`` once per batch key (``batch_key``: every batch of a run
+has one, since the loader pads the last one to the batch size) and then
+replays them: the batch copied into the graph's inputs, one launch, the
+metrics cloned. Dropout draws from ``state.generator``, registered with the
+graph, so a replay advances it as an eager step does; Adam is made
+capturable, its counts and learning rate on the device (the host writes
+the rate when the schedule changes it). A graph replays only while every
+tensor it reads or updates in place is the one it captured, and is
+captured again otherwise (a restore, ``adam.load_state_dict``). Every other
+step runs eagerly (``eager_reason``): on the CPU, placed on a mesh, under
+accumulation, or outside training mode.
 """
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass, field
 
 import torch
 
 from dualvgr_tpu_torch.models.dualvgr import DualVGR
+from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle
 from dualvgr_tpu_torch.ops.losses import dualvgr_total_loss
+from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence
+from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
+from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_one, tanh_to_bf16
 from dualvgr_tpu_torch.parallel.comm import all_reduce_
-from dualvgr_tpu_torch.utils.trace import span
+from dualvgr_tpu_torch.utils.trace import count, span
+
+# the kernels whose ``.launches`` count what the card ran: a graph's replay
+# adds the launches it holds
+COUNTED_KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one,
+                   input_proj_both, tanh_to_bf16)
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int, decay_epochs: int = 10):
@@ -97,7 +123,9 @@ class TrainState:
     the counts: ``step`` micro-steps taken, ``updates`` Adam updates applied,
     ``mini_step`` micro-gradients waiting in ``acc_grads``. ``placement``
     (``parallel.tp.Placement``) says how it lies on a mesh; None in one
-    process."""
+    process. ``graphs``: the captured steps by their key; ``lr_on_device``:
+    the learning-rate tensor of a capturable Adam and the rate last written
+    to it."""
 
     model: DualVGR
     optimizer: Optimizer
@@ -108,6 +136,8 @@ class TrainState:
     mini_step: int = 0
     acc_grads: list[torch.Tensor] = field(default_factory=list)
     placement: object = None
+    graphs: dict = field(default_factory=dict)
+    lr_on_device: tuple | None = None
 
 
 def create_train_state(model: DualVGR, optimizer: Optimizer, *, seed: int = 0) -> TrainState:
@@ -220,8 +250,7 @@ def apply_gradients(state: TrainState) -> None:
             for p, g in zip(params, grads):
                 p.grad = torch.where(clipped, g / g_norm * opt.max_grad_norm, g)
         with span("optimizer.adam"):
-            for group in state.adam.param_groups:
-                group["lr"] = opt.lr(state.updates)
+            _write_lr(state)
             if pl is not None and pl.zero:
                 pl.zero_step(state.adam)
             else:
@@ -229,14 +258,174 @@ def apply_gradients(state: TrainState) -> None:
             state.updates += 1
 
 
+def _write_lr(state: TrainState) -> None:
+    """Sets Adam's learning rate to the schedule's for the next update. A
+    capturable group keeps it in a float64 tensor on the device (divided
+    there by the float64 bias correction, see ``_make_capturable``), which a
+    graph reads: the host writes it only when the rate changes, and never
+    while a step is being captured (``_graphed_step`` writes it first)."""
+    lr = state.optimizer.lr(state.updates)
+    for group in state.adam.param_groups:
+        held = state.lr_on_device
+        if not group["capturable"]:
+            group["lr"] = lr
+        elif held is None or held[0] is not group["lr"]:
+            group["lr"] = torch.full((), lr, dtype=torch.float64, device=group["params"][0].device)
+            state.lr_on_device = (group["lr"], lr)
+        elif held[1] != lr:
+            group["lr"].fill_(lr)
+            state.lr_on_device = (group["lr"], lr)
+
+
+def _make_capturable(adam: torch.optim.Adam, device: torch.device) -> None:
+    """Adam as a CUDA graph can hold it: capturable, so that its counts and
+    its learning rate (``_write_lr``) are read on the device, each count in
+    float64, so that the bias corrections are taken in double precision as
+    the host takes them for the plain kernel (from a float32 count they are
+    0.3-1e-5 off in the first updates, in the fused kernel ~1e-6)."""
+    for group in adam.param_groups:
+        group["capturable"] = True
+    for st in adam.state.values():
+        if st["step"].dtype != torch.float64 or st["step"].device != device:
+            st["step"] = st["step"].to(device=device, dtype=torch.float64)
+
+
+def batch_key(batch) -> tuple:
+    """The shapes and dtypes of ``batch``'s arrays or tensors: one captured
+    step serves every batch with the same key, whatever its values."""
+    return tuple((tuple(a.shape), str(a.dtype)) for a in batch)
+
+
+def eager_reason(state: TrainState) -> str | None:
+    """Why ``train_step`` takes this step eagerly, or None where a CUDA
+    graph takes it: one process on a CUDA card, one micro-step per update,
+    the model in training mode, and Adam with a state (so a state's first
+    step is eager)."""
+    model = state.model
+    if state.placement is not None:
+        return "placed on a mesh"
+    if state.optimizer.grad_accum != 1:
+        return "gradient accumulation"
+    if not model.training:
+        return "not in training mode"
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        return f"on {device.type}"
+    if not state.adam.state:
+        return "no Adam state yet"
+    return None
+
+
+_METRICS = ("loss", "ce", "common", "dependence", "correct")
+
+
+def _pack(metrics: dict) -> torch.Tensor:
+    """The metrics as one (6,) fp32 tensor, ``count``'s int32 bits last."""
+    return torch.stack([*(metrics[k] for k in _METRICS), metrics["count"].view(torch.float32)])
+
+
+def _unpack_metrics(packed: torch.Tensor) -> dict:
+    *values, n = packed.unbind()
+    return {**dict(zip(_METRICS, values)), "count": n.view(torch.int32)}
+
+
+def _held(state: TrainState) -> list:
+    """What a captured step reads or updates in place outside its own
+    memory, as the optimizer holds it: the dropout generator, the learning
+    rate, each parameter and its Adam state tensors. A graph replays only
+    while each is the object it captured (a restore copies into the
+    parameters and buffers, and replaces Adam's tensors)."""
+    st = state.adam.state
+    out = [state.generator]
+    for group in state.adam.param_groups:
+        out.append(group["lr"])
+        for p in group["params"]:
+            s = st[p]
+            out += (p, s["exp_avg"], s["exp_avg_sq"], s["step"])
+    return out
+
+
+def _launch_counts() -> tuple:
+    return tuple(k.launches for k in COUNTED_KERNELS)
+
+
+class _StepGraph:
+    """The single-process micro-step at one batch key as one CUDA graph.
+
+    Capture runs ``forward_backward`` and ``apply_gradients`` once on
+    static inputs under ``torch.cuda.graph``: nothing runs on the card, and
+    the host's counts (``step``, ``updates``) move as in one eager step.
+    ``replay`` copies a batch into the static inputs, launches the graph,
+    adds the launches it holds to the kernels' counters and returns fresh
+    clones of its metrics, so that a later replay leaves them as they were.
+    """
+
+    def __init__(self, state: TrainState, inputs: tuple, held: list, *, alpha: float, beta: float):
+        self.held, self.params = held, list(state.model.parameters())
+        self.inputs = tuple(torch.empty_like(t) for t in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        before = _launch_counts()
+        # thread_local: the loader's producer pins memory while the step is captured
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = _pack(forward_backward(state, self.inputs, alpha=alpha, beta=beta))
+            apply_gradients(state)
+        self.launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        for kernel, n in zip(COUNTED_KERNELS, before):
+            kernel.launches = n
+        self.grads = [p.grad for p in self.params]
+        count("train.graph_captures")
+
+    def holds(self, held: list) -> bool:
+        return len(held) == len(self.held) and all(map(operator.is_, held, self.held))
+
+    def replay(self, inputs: tuple) -> dict:
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        self.graph.replay()
+        for kernel, n in zip(COUNTED_KERNELS, self.launches):
+            kernel.launches += n
+        if self.params[0].grad is not self.grads[0]:  # an eager step or another graph ran since
+            for p, g in zip(self.params, self.grads):
+                p.grad = g
+        count("train.graph_replays")
+        return _unpack_metrics(self.outputs.clone())
+
+
+def _graphed_step(state: TrainState, batch, *, alpha: float, beta: float) -> dict:
+    """``train_step`` through the graph of the batch's key, captured first
+    where there is none or it holds stale tensors."""
+    model = state.model
+    inputs = _unpack(batch, next(model.parameters()).device)
+    key = (batch_key(inputs), alpha, beta, model.use_kernels, model.compute_dtype)
+    _write_lr(state)
+    graph = state.graphs.get(key)
+    if graph is None or not graph.holds(_held(state)):
+        _make_capturable(state.adam, inputs[0].device)
+        _write_lr(state)
+        held = _held(state)
+        state.graphs = {k: g for k, g in state.graphs.items() if g.holds(held)}
+        graph = state.graphs[key] = _StepGraph(state, inputs, held, alpha=alpha, beta=beta)
+    else:
+        state.step += 1
+        state.updates += 1
+    with span("train.graph_replay"):
+        return graph.replay(inputs)
+
+
 def train_step(state: TrainState, batch, *, alpha: float, beta: float) -> dict:
-    """One micro-step: ``forward_backward`` then ``apply_gradients``.
+    """One micro-step: ``forward_backward`` then ``apply_gradients``, as one
+    CUDA graph's replay where ``eager_reason`` finds none against it.
 
     ``batch`` = (app, motion, question, qlen, answers) or the same +
     (valid,), numpy arrays or tensors; ``valid`` (B,) float masks padded
     rows of a final partial batch. Returns the metrics
-    ``{loss, ce, common, dependence, correct, count}``.
+    ``{loss, ce, common, dependence, correct, count}``, fresh tensors every
+    step.
     """
+    if eager_reason(state) is None:
+        return _graphed_step(state, batch, alpha=alpha, beta=beta)
+    count("train.eager_steps")
     metrics = forward_backward(state, batch, alpha=alpha, beta=beta)
     apply_gradients(state)
     return metrics

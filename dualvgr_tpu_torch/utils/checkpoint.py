@@ -125,6 +125,10 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState) -> tuple[int, TrainStat
             f"{len(state.acc_grads)}: restore with the grad_accum it was saved with"
         )
     state.model.load_state_dict(ck["state_dict"], strict=True)
+    # whether Adam is capturable is the state's own (``train_lib`` makes it so
+    # where a CUDA graph takes the step), not the saving run's
+    for saved, own in zip(ck["optimizer"]["param_groups"], state.adam.param_groups):
+        saved["capturable"] = own["capturable"]
     state.adam.load_state_dict(ck["optimizer"])
     with torch.no_grad():
         for acc, saved in zip(state.acc_grads, ck["acc_grads"]):

@@ -23,31 +23,40 @@ which with no profile running costs a small fraction of what
 The spans and counters, by the module that records them and the thread
 that runs it:
 
-===================  ========  ==================================================
-``train.forward``    caller    ``train_lib.forward_backward``: the inputs, the
-                               model and the total loss
-``train.backward``   caller    the placement's ``before_backward`` and
-                               ``total.backward()``
-``train.optimizer``  caller    ``train_lib.apply_gradients``, the whole of it
-``optimizer.clip``   caller    its child: the gradients' reduce, the global norm
-                               and the rescales (and the accumulation window)
-``optimizer.adam``   caller    its child: the learning rate and the Adam step
-``loader.gather``    producer  ``data/loader.py``: one batch made, both feature
-                               gathers
-``loader.put``       producer  one batch handed to the queue, blocked while full
-``loader.get``       consumer  one blocking get from the queue
-``prefetch.copy``    caller    ``parallel/mesh.py::prefetch_to_device``: one
-                               item's pinning, copies issued and event recorded
-``validate.fetch``   caller    ``validate_lib.validate``: one batch's predictions
-                               brought to the host (the wait for the card)
-``validate.tally``   caller    everything after a pass's loop: concatenations,
-                               buckets, strings
-===================  ========  ==================================================
+========================  ========  ==================================================
+``train.forward``         caller    ``train_lib.forward_backward``: the inputs, the
+                                    model and the total loss
+``train.backward``        caller    the placement's ``before_backward`` and
+                                    ``total.backward()``
+``train.optimizer``       caller    ``train_lib.apply_gradients``, the whole of it
+``optimizer.clip``        caller    its child: the gradients' reduce, the global norm
+                                    and the rescales (and the accumulation window)
+``optimizer.adam``        caller    its child: the learning rate and the Adam step
+``train.graph_replay``    caller    ``train_lib.train_step`` on a captured step: the
+                                    batch copied into the graph's inputs, the replay
+                                    and the metrics' clone (the three ``train.*``
+                                    phases above then run only when a step is eager
+                                    or captured)
+``loader.gather``         producer  ``data/loader.py``: one batch made, both feature
+                                    gathers
+``loader.put``            producer  one batch handed to the queue, blocked while full
+``loader.get``            consumer  one blocking get from the queue
+``prefetch.copy``         caller    ``parallel/mesh.py::prefetch_to_device``: one
+                                    item's pinning, copies issued and event recorded
+``validate.fetch``        caller    ``validate_lib.validate``: one batch's predictions
+                                    brought to the host (the wait for the card)
+``validate.tally``        caller    everything after a pass's loop: concatenations,
+                                    buckets, strings
+========================  ========  ==================================================
 
 Counters: ``loader.batches``, ``loader.rows`` (rows gathered, padding rows
 included) and ``loader.bytes`` (the batches' feature bytes) on the
 producer; ``prefetch.bytes`` (bytes issued host to device) and
-``prefetch.pinned`` (pageable tensors pinned on the way).
+``prefetch.pinned`` (pageable tensors pinned on the way);
+``train.graph_captures``, ``train.graph_replays`` and ``train.eager_steps``
+(``train_lib.train_step``: steps captured, replayed, taken eagerly; a
+captured step is replayed too, so replays over all steps is the share the
+graph took).
 """
 
 from __future__ import annotations

@@ -42,7 +42,9 @@ from perfbench.lib.trace import Recorder  # noqa: E402
 
 from dualvgr_tpu_torch.utils import trace  # noqa: E402
 
-PHASES = ("train.forward", "train.backward", "train.optimizer")
+# a train step's host phases: the three of an eager or captured step, or
+# the replay of a captured one
+PHASES = ("train.forward", "train.backward", "train.optimizer", "train.graph_replay")
 BETWEEN = ("validate.fetch", "prefetch.copy", "loader.get")  # what a gap between two eval calls holds
 
 
@@ -56,7 +58,10 @@ def readings(harness_spans: list, program: list, counters: dict, kernels: list, 
     """What the program's spans and counters read over the traced window.
 
     ``spans``: each program span's count, mean and total; ``phases_of_train_step``:
-    the train step's three phases over the harness's ``train_step`` span;
+    the train step's host phases (its forward, backward and optimizer, or
+    its graph's replay) over the harness's ``train_step`` span;
+    ``replay_share``: the steps a CUDA graph took (``train.graph_replays``)
+    over all steps (those and ``train.eager_steps``);
     ``between``: the program spans that start inside the harness's
     ``eval.between`` intervals, by name, and their share of those intervals;
     ``h2d_gbps``: ``prefetch.bytes`` over the window's host-to-device copies
@@ -71,6 +76,9 @@ def readings(harness_spans: list, program: list, counters: dict, kernels: list, 
     step = sum(t1 - t0 for n, t0, t1 in harness_spans if n == "train_step")
     if step > 0:
         out["phases_of_train_step"] = sum(sum(by_name[n]) for n in PHASES) / step
+    replays, eager = counters.get("train.graph_replays", 0), counters.get("train.eager_steps", 0)
+    if replays + eager > 0:
+        out["replay_share"] = replays / (replays + eager)
     between = [(t0, t1) for n, t0, t1 in harness_spans if n == "eval.between"]
     if between:
         parts = defaultdict(float)

@@ -1,7 +1,8 @@
 """``scripts/program_spans.py`` on the CPU: the harness's ``Recorder``
 with the port's tracer on over the traced window, the card's idle gaps
 labelled by the launching thread's innermost span (never by a span of
-another thread), and its readings on spans built by hand."""
+another thread), and its readings on spans built by hand, of eager steps
+and of steps a CUDA graph replayed."""
 
 import importlib.util
 import threading
@@ -77,6 +78,28 @@ def test_readings_on_spans_by_hand(script):
     assert got["h2d_gbps"] == pytest.approx(2.0)
     assert got["idle_in_program"] == pytest.approx(0.75)
     assert set(script.readings(HARNESS[1:], [], {}, [], [])) == {"spans", "counters"}  # nothing to read
+
+
+@pytest.mark.parametrize("replayed, eager", [(3, 0), (2, 1), (0, 3)])
+def test_readings_of_graph_replays(script, replayed, eager):
+    """Three steps of 10 s, each either replayed (one ``train.graph_replay``
+    of 8 s) or eager (the three phases, 9.5 s): the host phases are read
+    from whichever ran, and the replay share from the counters."""
+    harness, program = [], []
+    for i in range(replayed + eager):
+        t = 10.0 * i
+        harness.append(("train_step", t, t + 10))
+        if i < replayed:
+            program.append(Span("train.graph_replay", _ns(t), _ns(t + 8), ME, None))
+        else:
+            program += [Span(s.name, s.start_ns + _ns(t), s.end_ns + _ns(t), ME, s.parent) for s in PROGRAM[:4]]
+    counters = {"train.graph_replays": replayed, "train.eager_steps": eager}
+    gaps = [["train.graph_replay", 0.3], ["train_step", 0.1]]
+    got = script.readings(harness, program, counters, [], gaps)
+    assert got["phases_of_train_step"] == pytest.approx((8 * replayed + 9.5 * eager) / (10 * (replayed + eager)))
+    assert got["replay_share"] == pytest.approx(replayed / 3)
+    assert got["counters"] == counters
+    assert got["idle_in_program"] == pytest.approx(0.75)
 
 
 def test_the_recorder_turns_the_tracer_on_over_its_window(script):

@@ -27,6 +27,7 @@ widths; every rank builds the model from the same seed.
   sharded leaves counted; DP-2 + ZeRO-1 against the one-process step,
   whose update is ``torch.optim.Adam``'s;
 * the batch norm's running statistics equal on every rank;
+* every step of a placed state taken eagerly (no CUDA graph on a mesh);
 * the eval step's predictions, gathered over the data axis, equal to one
   process's;
 * the train CLI on two ranks with host-sharded loading, grad_accum 2 and
@@ -128,6 +129,15 @@ def test_uneven_padding_matches_one_process(one, dp2, world4, world):
     assert one["metrics"][1]["count"] == 5
     for r in ranks:
         np.testing.assert_allclose(r["losses"][1], one["losses"][1], rtol=RTOL)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_every_step_of_a_placed_state_is_eager(one, dp2, world4, world):
+    """No CUDA graph takes a step on a mesh (DP, ZeRO-1, TP), whatever the
+    device; one process on the CPU is eager for its device."""
+    runs = dp2 if world == 2 else world4
+    assert all(r["eager"] == ["placed on a mesh"] * len(BATCHES) for ranks in runs for r in ranks)
+    assert one["eager"] == ["on cpu"] * len(BATCHES)
 
 
 def test_tp_zero_matches_dp4(world4):
