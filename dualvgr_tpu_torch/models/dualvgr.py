@@ -41,6 +41,11 @@ Linears stream bf16 operands with fp32 sums, and the BiLSTM gates are
 rounded to bf16. It changes no parameter and no state_dict key, and can be
 set on a built model (``model.compute_dtype = "bfloat16"``), like
 ``use_kernels``.
+
+With the port's tracer on (``utils/trace.py``), each unit cycle, from
+QueryAttn through the residual add, is one ``model.unit`` span and adds one
+to the counter ``model.unit_cycles``; off, neither costs more than a flag
+test.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from dualvgr_tpu_torch.ops.gat_kernel import MAX_DIM, MAX_NODES, gat_cycle
 from dualvgr_tpu_torch.ops.lstm_kernel import MAX_HIDDEN
 from dualvgr_tpu_torch.ops.precision import stream_dtype_of, streamed_einsum
 from dualvgr_tpu_torch.utils.device import resolve_device
+from dualvgr_tpu_torch.utils.trace import count, span
 
 
 class DualVGROutput(NamedTuple):
@@ -151,61 +157,64 @@ class DualVGRUnitStack(nn.Module):
         aq_embed = mq_embed = None
 
         for i in range(self.unit_layers):
-            aq, mq = appearance_feat, motion_feat
-            guided, _ = self.queryAttn[i](word_embedding, dynamic_question_embedding, question_len)
-            app_scores = self.queryPunish_appear[i](guided, aq)
-            mot_scores = self.queryPunish_motion[i](guided, mq)
+            # one cycle, QueryAttn through the residual add, as one span when traced
+            with span("model.unit"):
+                count("model.unit_cycles")
+                aq, mq = appearance_feat, motion_feat
+                guided, _ = self.queryAttn[i](word_embedding, dynamic_question_embedding, question_len)
+                app_scores = self.queryPunish_appear[i](guided, aq)
+                mot_scores = self.queryPunish_motion[i](guided, mq)
 
-            if fused:
-                appearance_feat, com_a, spec_a = self._fused_cycle(
-                    aq, app_scores, self.acGCN[i], self.appearance_GCN[i],
-                    self.attention_appearance[i],
-                )
-                motion_feat, com_m, spec_m = self._fused_cycle(
-                    mq, mot_scores, self.mcGCN[i], self.motion_GCN[i], self.attention_motion[i],
-                )
-                # the SFGCN fusion is exactly the residual delta
-                aq_embed = appearance_feat - aq
-                mq_embed = motion_feat - mq
-                aq_fusion.append(spec_a)
-                com_app_list.append(com_a)
-                mq_fusion.append(spec_m)
-                com_motion_list.append(com_m)
-                continue
-
-            if batched:
-                # common and specific read the same input, so each graph
-                # layer's four banks stack exactly
-                for j in range(self.graph_layers):
-                    k = i * self.graph_layers + j
-                    com_app, aq, com_motion, mq = self._gat4_batched(
-                        torch.stack([aq, aq, mq, mq]),
-                        torch.stack([app_scores, app_scores, mot_scores, mot_scores]), adj,
-                        [self.acGCN[k], self.appearance_GCN[k], self.mcGCN[k], self.motion_GCN[k]],
-                        generator,
+                if fused:
+                    appearance_feat, com_a, spec_a = self._fused_cycle(
+                        aq, app_scores, self.acGCN[i], self.appearance_GCN[i],
+                        self.attention_appearance[i],
                     )
-                    aq_fusion.append(aq)
-                    com_app_list.append(com_app)
-                    mq_fusion.append(mq)
-                    com_motion_list.append(com_motion)
-            else:
-                for j in range(self.graph_layers):
-                    k = i * self.graph_layers + j
-                    com_app = self.acGCN[k](aq, adj, app_scores, generator)
-                    aq = self.appearance_GCN[k](aq, adj, app_scores, generator)
-                    aq_fusion.append(aq)
-                    com_app_list.append(com_app)
-                for j in range(self.graph_layers):
-                    k = i * self.graph_layers + j
-                    com_motion = self.mcGCN[k](mq, adj, mot_scores, generator)
-                    mq = self.motion_GCN[k](mq, adj, mot_scores, generator)
-                    mq_fusion.append(mq)
-                    com_motion_list.append(com_motion)
+                    motion_feat, com_m, spec_m = self._fused_cycle(
+                        mq, mot_scores, self.mcGCN[i], self.motion_GCN[i], self.attention_motion[i],
+                    )
+                    # the SFGCN fusion is exactly the residual delta
+                    aq_embed = appearance_feat - aq
+                    mq_embed = motion_feat - mq
+                    aq_fusion.append(spec_a)
+                    com_app_list.append(com_a)
+                    mq_fusion.append(spec_m)
+                    com_motion_list.append(com_m)
+                    continue
 
-            aq_embed, _ = self.attention_appearance[i](torch.stack([com_app, aq], dim=1))
-            mq_embed, _ = self.attention_motion[i](torch.stack([com_motion, mq], dim=1))
-            appearance_feat = appearance_feat + aq_embed
-            motion_feat = motion_feat + mq_embed
+                if batched:
+                    # common and specific read the same input, so each graph
+                    # layer's four banks stack exactly
+                    for j in range(self.graph_layers):
+                        k = i * self.graph_layers + j
+                        com_app, aq, com_motion, mq = self._gat4_batched(
+                            torch.stack([aq, aq, mq, mq]),
+                            torch.stack([app_scores, app_scores, mot_scores, mot_scores]), adj,
+                            [self.acGCN[k], self.appearance_GCN[k], self.mcGCN[k], self.motion_GCN[k]],
+                            generator,
+                        )
+                        aq_fusion.append(aq)
+                        com_app_list.append(com_app)
+                        mq_fusion.append(mq)
+                        com_motion_list.append(com_motion)
+                else:
+                    for j in range(self.graph_layers):
+                        k = i * self.graph_layers + j
+                        com_app = self.acGCN[k](aq, adj, app_scores, generator)
+                        aq = self.appearance_GCN[k](aq, adj, app_scores, generator)
+                        aq_fusion.append(aq)
+                        com_app_list.append(com_app)
+                    for j in range(self.graph_layers):
+                        k = i * self.graph_layers + j
+                        com_motion = self.mcGCN[k](mq, adj, mot_scores, generator)
+                        mq = self.motion_GCN[k](mq, adj, mot_scores, generator)
+                        mq_fusion.append(mq)
+                        com_motion_list.append(com_motion)
+
+                aq_embed, _ = self.attention_appearance[i](torch.stack([com_app, aq], dim=1))
+                mq_embed, _ = self.attention_motion[i](torch.stack([com_motion, mq], dim=1))
+                appearance_feat = appearance_feat + aq_embed
+                motion_feat = motion_feat + mq_embed
 
         visual = self.visualfusion(appearance_feat, motion_feat)
         return (

@@ -41,7 +41,7 @@ from dualvgr_tpu_torch.utils.device import resolve_device
 # the tiny widths of the dry run (the JAX package's multichip test's)
 TINY = dict(vision_dim=24, module_dim=16, word_dim=8, question_vocab_size=30, num_answers=10,
             num_of_nodes=4, graph_layers=1, unit_layers=1)
-CLIPS, FRAMES, QLEN = 4, 3, 5
+FRAMES, QLEN = 3, 5
 # one process against N ranks, fp32, the same global batch: only the sum
 # order of the collectives differs
 RTOL = 2e-6
@@ -49,13 +49,15 @@ RTOL = 2e-6
 
 def tiny_batches(n: int = 1, batch: int = 8, seed: int = 7, pad: int = 0, dims=None):
     """``n`` global batches (app, motion, question, qlen, answers, valid) of
-    numpy arrays at the tiny widths, the last ``pad`` rows padded."""
+    numpy arrays at the tiny widths, one clip a graph node, the last ``pad``
+    rows padded."""
     d = dict(TINY, **(dims or {}))
+    clips = d["num_of_nodes"]
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        app = rng.randn(batch, CLIPS, FRAMES, d["vision_dim"]).astype(np.float32)
-        mot = rng.randn(batch, CLIPS, d["vision_dim"]).astype(np.float32)
+        app = rng.randn(batch, clips, FRAMES, d["vision_dim"]).astype(np.float32)
+        mot = rng.randn(batch, clips, d["vision_dim"]).astype(np.float32)
         qlen = rng.randint(1, QLEN + 1, (batch,)).astype(np.int32)
         q = rng.randint(1, d["question_vocab_size"], (batch, QLEN)).astype(np.int32)
         for i in range(batch):

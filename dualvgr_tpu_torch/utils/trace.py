@@ -37,6 +37,10 @@ that runs it:
                                     and the metrics' clone (the three ``train.*``
                                     phases above then run only when a step is eager
                                     or captured)
+``model.unit``            caller    ``models/dualvgr.py::DualVGRUnitStack``: one unit
+                                    cycle of a forward, QueryAttn through the
+                                    residual add (in a train step's forward: eager
+                                    or captured steps only)
 ``loader.gather``         producer  ``data/loader.py``: one batch made, both feature
                                     gathers
 ``loader.put``            producer  one batch handed to the queue, blocked while full
@@ -56,7 +60,8 @@ producer; ``prefetch.bytes`` (bytes issued host to device) and
 ``train.graph_captures``, ``train.graph_replays`` and ``train.eager_steps``
 (``train_lib.train_step``: steps captured, replayed, taken eagerly; a
 captured step is replayed too, so replays over all steps is the share the
-graph took).
+graph took); ``model.unit_cycles`` (the unit cycles the model's forwards
+ran; a replayed step runs them without the host, so counts none).
 """
 
 from __future__ import annotations

@@ -66,7 +66,8 @@ def readings(harness_spans: list, program: list, counters: dict, kernels: list, 
     ``eval.between`` intervals, by name, and their share of those intervals;
     ``h2d_gbps``: ``prefetch.bytes`` over the window's host-to-device copies
     on the card; ``idle_in_program``: of the idle labelled ``train_step`` or
-    by a train-step span, the share the program's spans hold."""
+    by a train-step span (a forward's ``model.unit`` cycles among them), the
+    share the program's spans hold."""
     by_name = defaultdict(list)
     for s in program:
         by_name[s.name].append((s.end_ns - s.start_ns) / 1e9)
@@ -92,7 +93,7 @@ def readings(harness_spans: list, program: list, counters: dict, kernels: list, 
     copies = sum(d for n, _, d in kernels if "Memcpy HtoD" in n)
     if copies > 0 and counters.get("prefetch.bytes"):
         out["h2d_gbps"] = counters["prefetch.bytes"] / copies / 1e9
-    train_labels = set(PHASES) | {"optimizer.clip", "optimizer.adam"}
+    train_labels = set(PHASES) | {"optimizer.clip", "optimizer.adam", "model.unit"}
     held = sum(s for label, s in idle_gaps if label in train_labels)
     left = sum(s for label, s in idle_gaps if label == "train_step")
     if held + left > 0:

@@ -102,6 +102,18 @@ def test_readings_of_graph_replays(script, replayed, eager):
     assert got["idle_in_program"] == pytest.approx(0.75)
 
 
+def test_idle_under_a_unit_cycle_is_the_programs(script):
+    """An eager step's forward holds its unit cycles: a gap labelled
+    ``model.unit`` is idle the program holds, and the span and its counter
+    are read."""
+    program = [Span("train.forward", _ns(0), _ns(3), ME, None),
+               Span("model.unit", _ns(1), _ns(2), ME, "train.forward")]
+    got = script.readings(HARNESS, program, {"model.unit_cycles": 1}, [], [["model.unit", 0.3], ["train_step", 0.1]])
+    assert got["idle_in_program"] == pytest.approx(0.75)
+    assert got["spans"]["model.unit"] == {"n": 1, "mean_ms": pytest.approx(1e3), "total_s": pytest.approx(1.0)}
+    assert got["counters"] == {"model.unit_cycles": 1}
+
+
 def test_the_recorder_turns_the_tracer_on_over_its_window(script):
     rec = script.ProgramSpans(True, torch.device("cpu"), 0.0, 0.0)
     rec.begin_window()

@@ -366,7 +366,7 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad_on_the_card(cuda):
         assert fn.launches == before + 1
 
 
-@pytest.mark.parametrize("unit_layers,graph_layers", [(1, 1), (1, 2)])
+@pytest.mark.parametrize("unit_layers,graph_layers", [(1, 1), (1, 2), (2, 1)])
 def test_train_step_kernel_path_matches_plain_path(rs, cuda, unit_layers, graph_layers):
     """One train step's loss and per-module gradient norms, kernel path
     against plain path: loss within 1e-4 relative, norms within 1e-3

@@ -4,8 +4,9 @@ in the train step, the loader and validation, on the CPU.
 Off, the tracer hands out one shared no-op and records nothing; on, it
 records names, nesting, threads and counters, shows each span as a range
 of a running profile, and reading clears them. A
-train step yields its forward, backward and optimizer spans (the clip and
-Adam inside the last); a loader pass yields its gathers and puts on the
+train step yields its forward, backward and optimizer spans (the model's
+unit cycles inside the first, the clip and Adam inside the last), and a
+forward one ``model.unit`` span and count a unit cycle; a loader pass yields its gathers and puts on the
 producer thread and its gets on the consumer, with counters equal to the
 batches' sizes; a validation pass yields one fetch a batch and one tally.
 ``prefetch_to_device`` is a pass-through on the CPU: its span and counters
@@ -25,7 +26,10 @@ from dualvgr_tpu_torch import build_model, train_lib, validate_lib
 from dualvgr_tpu_torch.data import FeatureStore, VideoQADataLoader
 from dualvgr_tpu_torch.utils import trace
 
-TRAIN_SPANS = ["train.forward", "train.backward", "train.optimizer", "optimizer.clip", "optimizer.adam"]
+# in start order; the forward holds its model's unit cycle (one: unit_layers 1)
+TRAIN_SPANS = ["train.forward", "model.unit", "train.backward", "train.optimizer", "optimizer.clip",
+               "optimizer.adam"]
+PARENTS = {"model.unit": "train.forward", "optimizer.clip": "train.optimizer", "optimizer.adam": "train.optimizer"}
 
 
 @pytest.fixture(autouse=True)
@@ -160,11 +164,37 @@ def test_a_train_step_yields_its_phases_in_order(grad_accum):
         want = TRAIN_SPANS if (step + 2) % grad_accum == 0 else TRAIN_SPANS[:-1]
         assert [s.name for s in got] == want
         parents = {s.name: s.parent for s in got}
-        assert parents == {n: "train.optimizer" if n.startswith("optimizer.") else None for n in want}
-        optimizer = got[2]
-        assert all(optimizer.start_ns <= s.start_ns <= s.end_ns <= optimizer.end_ns for s in got[3:])
-        assert all(a.end_ns <= b.start_ns for a, b in zip(got[:3], got[1:3]))
+        assert parents == {n: PARENTS.get(n) for n in want}
+        forward, unit, backward, optimizer = got[:4]
+        assert forward.start_ns <= unit.start_ns <= unit.end_ns <= forward.end_ns
+        assert all(optimizer.start_ns <= s.start_ns <= s.end_ns <= optimizer.end_ns for s in got[4:])
+        assert forward.end_ns <= backward.start_ns and backward.end_ns <= optimizer.start_ns
+        assert trace.counters() == {"train.eager_steps": 1, "model.unit_cycles": 1}
     assert state.updates == 1 + (grad_accum == 1)
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_a_two_unit_forward_traces_each_cycle(on):
+    """Each unit cycle of a forward (unit_layers 2, 20 nodes) is one
+    ``model.unit`` span, in order and apart, and counts one
+    ``model.unit_cycles``; with the tracer off nothing is recorded."""
+    model = build_model(device="cpu", vision_dim=VISION, module_dim=16, word_dim=10, question_vocab_size=VOCAB,
+                        num_answers=ANSWERS, num_of_nodes=20, graph_layers=1, unit_layers=2)
+    rng = np.random.RandomState(1)
+    app, mot = rng.randn(2, 20, FRAMES, VISION), rng.randn(2, 20, VISION)
+    q, qlen = rng.randint(1, VOCAB, (2, T)), np.full(2, T)
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in (app, mot)] + [torch.as_tensor(q), torch.as_tensor(qlen)]
+    if on:
+        trace.enable()
+    model(*args)
+    trace.disable()
+    got = _by_start(trace.spans())
+    if not on:
+        assert got == [] and trace.counters() == {}
+        return
+    assert [(s.name, s.parent) for s in got] == [("model.unit", None)] * 2
+    assert got[0].end_ns <= got[1].start_ns
+    assert trace.counters() == {"model.unit_cycles": 2}
 
 
 # ---------------------------------------------------------------- the loader and validation

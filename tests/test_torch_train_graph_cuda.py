@@ -6,8 +6,9 @@ two paths on the CPU). The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_graph_cuda.py
 
-Tiny widths (``parallel/dryrun.py``'s), kernels on, fp32 with TF32 off,
-one seed for both paths. The eager step is ``forward_backward`` then
+Tiny widths (``parallel/dryrun.py``'s; one case at the SVQA configuration's
+two units and 20 clips), kernels on, fp32 with TF32 off, one seed for both
+paths. The eager step is ``forward_backward`` then
 ``apply_gradients``, what ``train_step`` runs when no graph can take the
 step. Over 12 steps at one step an epoch (the learning rate halves at
 update 10): the dropout generator's state equal, the losses within 1e-6
@@ -48,17 +49,17 @@ def cuda():
     trace.spans(), trace.counters()
 
 
-def _state(compute_dtype="float32", graph_module="GAT"):
+def _state(compute_dtype="float32", graph_module="GAT", depth=None):
     model = build_model(device="cuda", seed=0, use_kernels=True, compute_dtype=compute_dtype,
-                        graph_module=graph_module, **TINY)
+                        graph_module=graph_module, **dict(TINY, **(depth or {})))
     return train_lib.create_train_state(model, train_lib.make_optimizer(1e-3, 1), seed=3)
 
 
-def _batches(n, seed=5):
+def _batches(n, seed=5, depth=None):
     """``n`` device batches, every third with 3 of its 8 rows padded."""
     out = []
     for i in range(n):
-        b = tiny_batches(1, seed=seed + i, pad=3 if i % 3 == 2 else 0)[0]
+        b = tiny_batches(1, seed=seed + i, pad=3 if i % 3 == 2 else 0, dims=depth)[0]
         out.append(tuple(torch.as_tensor(a, device="cuda") for a in b))
     return out
 
@@ -88,12 +89,20 @@ def _change_median_gap(got, want, start):
     return float(np.median([abs(a - b) / max(b, median) for a, b in zip(g, w)]))
 
 
-@pytest.mark.parametrize("compute_dtype, graph_module", [("float32", "GAT"), ("bfloat16", "GAT"),
-                                                         ("float32", "GCN")])
-def test_twelve_graphed_steps_match_twelve_eager_ones(cuda, compute_dtype, graph_module):
-    graphed, eager = _state(compute_dtype, graph_module), _state(compute_dtype, graph_module)
+# the SVQA configuration's depth and graph: two stacked units, 20 clips
+SVQA_DEPTH = {"unit_layers": 2, "num_of_nodes": 20}
+
+
+@pytest.mark.parametrize("compute_dtype, graph_module, depth", [
+    pytest.param("float32", "GAT", None, id="float32-GAT"),
+    pytest.param("bfloat16", "GAT", None, id="bfloat16-GAT"),
+    pytest.param("float32", "GCN", None, id="float32-GCN"),
+    pytest.param("float32", "GAT", SVQA_DEPTH, id="float32-GAT-U2-N20"),
+])
+def test_twelve_graphed_steps_match_twelve_eager_ones(cuda, compute_dtype, graph_module, depth):
+    graphed, eager = _state(compute_dtype, graph_module, depth), _state(compute_dtype, graph_module, depth)
     start = [p.detach().clone() for p in eager.model.parameters()]
-    batches = _batches(12)
+    batches = _batches(12, depth=depth)
     trace.enable()
     got = [float(_graphed(graphed, b)["loss"]) for b in batches]
     trace.disable()
@@ -101,6 +110,8 @@ def test_twelve_graphed_steps_match_twelve_eager_ones(cuda, compute_dtype, graph
     counters = trace.counters()
     assert (counters.get("train.graph_captures"), counters.get("train.graph_replays"),
             counters.get("train.eager_steps")) == (1, 11, 1)
+    # the host runs the unit cycles of the eager step and of the capture alone
+    assert counters.get("model.unit_cycles") == 2 * graphed.model.visual_input_unit.unit_layers
     assert torch.equal(graphed.generator.get_state(), eager.generator.get_state())
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert _change_median_gap(graphed.model, eager.model, start) <= 5e-6
