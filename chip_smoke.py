@@ -366,7 +366,9 @@ def cluster_plan(prefix, gates):
     (checked against the library's own count), rows per tile and the most
     items a cluster walks."""
     _, r, g = gates.shape
-    lib, code = _build.load(f"{prefix}.cu"), gate_dtype_code(prefix, gates)
+    # kernel 4 reads fp32 activations whatever the gates: it has no gate type
+    code = None if prefix == "bilstm_train_bwd" else gate_dtype_code(prefix, gates)
+    lib = _build.load(f"{prefix}.cu")
     plan = launch_plan(lib, prefix, r, g // 4, code,
                        plan=backward_plan if prefix == "bilstm_train_bwd" else recurrence_plan)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -956,25 +958,27 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
     h = g // 4
     fargs = (xf, xb, whf, whb, lengths)
 
-    got = bilstm_train_fwd(*fargs, with_outputs=with_outputs)
+    fwd_got = bilstm_train_fwd(*fargs, with_outputs=with_outputs)
     torch.cuda.synchronize()
-    want = bilstm_train_fwd_reference(*fargs, with_outputs=with_outputs)
+    fwd_want = bilstm_train_fwd_reference(*fargs, with_outputs=with_outputs)
     fwd_err = 0.0
-    for field, a, b in zip(("final", "outs", "hprev", "cprev"), got, want):
+    for field, a, b in zip(("final", "outs", "hprev", "cprev", "acts"), fwd_got, fwd_want):
         if b is None:
             continue
         check(torch.isfinite(a).all().item(), f"train fwd {name} {field}: non-finite kernel output")
         fwd_err = max(fwd_err, max_err(a, b))
     check(fwd_err <= TOL_LSTM, f"train fwd {name}: kernel vs plain max abs err {fwd_err:.3e} > {TOL_LSTM}")
-    _, _, hprev, cprev = want
-    del got, want
 
+    # kernel 4 and the plain backward on the same inputs: kernel 3's
+    # activations and c_{t-1} (the chain against the plain forward's is
+    # tests/test_torch_kernels_cuda.py::test_train_kernels_match_plain)
     dfinal = torch.randn((r, 2 * h), generator=gen, device=xf.device)
     douts = torch.randn((r, t_total, 2 * h), generator=gen, device=xf.device) if with_outputs else None
-    bargs = (*fargs, hprev, cprev, dfinal, douts)
+    bargs = (fwd_got[4], whf, whb, lengths, fwd_got[3], dfinal, douts)
     got = bilstm_train_bwd(*bargs)
     torch.cuda.synchronize()
     want = bilstm_train_bwd_reference(*bargs)
+    del fwd_got, fwd_want
     bwd_err, bwd_tol = 0.0, 0.0
     for field, a, b in zip(("dxf", "dxb"), got, want):
         check(torch.isfinite(a).all().item(), f"train bwd {name} {field}: non-finite kernel output")
@@ -995,20 +999,21 @@ def train_lstm_case(name, enc, x, lengths, with_outputs, gen, gates=None):
     lib_fwd_ms, lib_bwd_ms = cudnn_train_ms(enc, x, lengths, with_outputs, gen) if gates is None else (None, None)
 
     # what these inputs need: each direction runs len_r steps of row r; a
-    # step of the forward is one (H) @ (H, 4H) product, of the backward two
-    # (the gates again, and dgates @ W_hh^T). Inputs are counted at the
-    # valid steps, outputs in full.
+    # step of the forward is one (H) @ (H, 4H) product, of the backward one
+    # too (dgates @ W_hh^T: the gates are the forward's activations). Inputs
+    # are counted at the valid steps, outputs in full.
     steps = t_total * r if lengths is None else int(lengths.sum().item())
     gb = xf.element_size()  # bytes per gate read
     len_bytes = 4 * r if lengths is not None else 0
-    res_bytes = 4 * 2 * t_total * r * 2 * h  # hprev and cprev, (T, R, 2H) each
+    # hprev and cprev, (T, R, 2H) each, and the activations, (2, T, R, 4H)
+    res_bytes = 4 * (2 * t_total * r * 2 * h + 2 * t_total * r * g)
     f_flops = 2 * steps * 2 * h * g
     f_bytes = gb * 2 * steps * g + 4 * (2 * h * g + r * 2 * h) + len_bytes + res_bytes
     if with_outputs:
         f_bytes += 4 * r * t_total * 2 * h
-    b_flops = 2 * f_flops
-    b_bytes = (gb * 2 * steps * g + 4 * (2 * h * g + 2 * steps * 2 * h + r * 2 * h + 2 * t_total * r * g)
-               + len_bytes)
+    b_flops = f_flops
+    # the fp32 activations and c_{t-1} read, W_hh, dfinal, the dgates written
+    b_bytes = 4 * (2 * steps * g + 2 * steps * h + 2 * h * g + r * 2 * h + 2 * t_total * r * g) + len_bytes
     if with_outputs:
         b_bytes += 4 * r * t_total * 2 * h
     f_bound, f_by = bound_ms(f_flops, f_bytes)

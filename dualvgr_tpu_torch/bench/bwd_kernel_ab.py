@@ -4,32 +4,32 @@
     python -m dualvgr_tpu_torch.bench.bwd_kernel_ab --baseline DIR
 
 Needs one CUDA device and ``nvcc``. Without ``--baseline`` it builds the
-committed source, two build variants (the gate product's loop unrolled
-by 2, the dh product's not unrolled; the source unrolls them by 1 and 2)
-and timing-only cuts of it, all ``nvcc``s at once, as ``ops/_build.py``
-builds the source: the gate recompute cut (its product loop runs no
-step), the dh product cut, the reduce-scatter cut (each
-CTA stores its partials into its own receive buffer, so the product stays
-live, and nothing is waited for) and the cell's transcendentals cut (the
-gates pass unsquashed: expf, tanhf and the divisions gone, the rest of the
-cell kept). It runs each through the port's wrapper at the three shapes of
-the flagship train step (the appearance encoder: T 16, R 4096, unmasked,
-final only; ``concatRNN``: T 24, R 256, lengths 4..24, with ``douts``; the
-question ``encoder``: the same, final only) and the appearance shape on
-the same gates rounded to bf16, H 384, seeded random gates and weights, the
-residuals from the plain forward. The committed build and the variants
-are checked against the plain version (1e-3 x max(1, max|ref|)); every
-build is timed with CUDA events, interleaved (forward order, then
+committed source, a build variant (the dh product's loop not unrolled; the
+source unrolls it by 2) and timing-only cuts of it, all ``nvcc``s at once,
+as ``ops/_build.py`` builds the source: the dh product cut, the
+reduce-scatter cut (each CTA stores its partials into its own receive
+buffer, so the product stays live, and nothing is waited for) and the
+cell's transcendental cut (the tanh of c_t gone, the rest of the cell
+kept). It runs each through the port's wrapper at the three shapes of the
+flagship train step (the appearance encoder: T 16, R 4096, unmasked, final
+only; ``concatRNN``: T 24, R 256, lengths 4..24, with ``douts``; the
+question ``encoder``: the same, final only) and the appearance shape on the
+same gates rounded to bf16, H 384, seeded random gates and weights, the
+activations and c_{t-1} from the plain forward. The committed build and the
+variant are checked against the plain version (1e-3 x max(1, max|ref|));
+every build is timed with CUDA events, interleaved (forward order, then
 reversed) in one process on one card, and each cut is printed beside what
 it leaves of the committed time.
 
 With ``--baseline DIR`` (a checkout of an earlier commit of the repo) it
 runs this script's measurement in DIR's package and in this one, in turns
 (baseline, this, this, baseline), one process each on the same card: kernel
-4, and kernels 1 and 3 beside it, at the same shapes and gates (fp32, and
-bf16 gates at the appearance shape), and the flagship eval forward at batch
-256 in fp32 and bf16. It prints each time per run and this tree's mean
-against the baseline's. fp32, TF32 off.
+4 on the tree's own kernel 3 outputs (the activations and c_{t-1}; a tree
+whose kernel 4 recomputes the gates takes the gates and both residuals
+instead, and cannot be the baseline), and kernels 1 and 3 beside it, at the same shapes and
+gates (fp32, and bf16 gates at the appearance shape), and the flagship eval
+forward at batch 256 in fp32 and bf16. It prints each time per run and this
+tree's mean against the baseline's. fp32, TF32 off.
 """
 
 from __future__ import annotations
@@ -49,29 +49,21 @@ from dualvgr_tpu_torch.ops import _build
 
 SOURCE = "bilstm_train_bwd.cu"
 ROOT = Path(__file__).resolve().parents[2]
-GATE_LOOP = "for (int k = k0; k < k1; k += 4) {"
 DH_LOOP = "for (int c = 0; c < 4 * units; c += 4) {"
 DST = "dst[j] = in_rank(smem_u32(my_slot + k % units), k / units);"
-WAITS = ("mbar_wait(smem_u32(&bars[1]), fullpar);", "mbar_wait(smem_u32(&bars[2]), freepar);",
-         "arrive_remote(in_rank(smem_u32(&bars[1]), i));", "arrive_remote(in_rank(smem_u32(&bars[2]), i));")
-CELL = ("const float ig = sigmoid_f(gate[s][0]), fg = sigmoid_f(gate[s][1]);\n"
-        "        const float gg = tanhf(gate[s][2]), og = sigmoid_f(gate[s][3]);\n"
-        "        const float tc = tanhf(fg * c_prev[s] + ig * gg);")
-GATE_UNROLL = "#pragma unroll 1\n        for (int k = k0;"
+WAITS = ("mbar_wait(smem_u32(&bars[0]), fullpar);", "mbar_wait(smem_u32(&bars[1]), freepar);",
+         "arrive_remote(in_rank(smem_u32(&bars[0]), i));", "arrive_remote(in_rank(smem_u32(&bars[1]), i));")
+CELL = "const float tc = tanhf(fg * c_prev[s] + ig * gg);"
 DH_UNROLL = "#pragma unroll 2\n      for (int c = 0;"
 # name -> the replacements that make it; the cuts ("no_*") are timing only
 VARIANTS = {
     "committed": (),
-    "gate_unroll2": ((GATE_UNROLL, GATE_UNROLL.replace("unroll 1", "unroll 2")),),
     "dh_unroll1": ((DH_UNROLL, DH_UNROLL.replace("unroll 2", "unroll 1")),),
-    "no_gate_recompute": ((GATE_LOOP, GATE_LOOP.replace("k < k1", "k < k0")),),
     "no_dh_product": ((DH_LOOP, DH_LOOP.replace("c < 4 * units", "c < 0 * units")),),
     # every partial stored into this CTA's own receive buffer (so the dh
     # product stays live), no arrival, no wait: the reduce sums stale values
     "no_reduce_scatter": ((DST, DST.replace("k / units)", "rank)")), *((line, ";") for line in WAITS)),
-    "no_transcendentals": ((CELL, "const float ig = gate[s][0], fg = gate[s][1];\n"
-                                  "        const float gg = gate[s][2], og = gate[s][3];\n"
-                                  "        const float tc = fg * c_prev[s] + ig * gg;"),),
+    "no_transcendentals": ((CELL, "const float tc = fg * c_prev[s] + ig * gg;"),),
 }
 H, G = 384, 4 * 384
 FLAGSHIP = dict(vision_dim=2048, module_dim=768, word_dim=300, question_vocab_size=8000,
@@ -121,14 +113,21 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def backward_args(fwd, fargs, dfinal, douts):
+    """Kernel 4's arguments from the outputs ``fwd`` of kernel 3 (or of its
+    plain version) on ``fargs``: the activations and c_{t-1}."""
+    _, _, _, cprev, acts = fwd
+    return (acts, *fargs[2:], cprev, dfinal, douts)
+
+
 @torch.no_grad()
-def cases(gen):
+def cases(gen, forward):
     """(name, forward args, with_outputs, backward args) at the three
     shapes of the flagship train step, then the appearance shape with bf16
-    gates. Uses only what the trees with the cluster forward kernels all
-    have, so that ``--baseline`` can run it in an earlier one."""
-    from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_fwd_reference
-
+    gates, kernel 4's arguments from ``forward`` (kernel 3 or its plain
+    version). Uses only what the trees whose kernel 3 returns the
+    activations all have, so that ``--baseline`` can run it in an earlier
+    one."""
     dev = gen.device
     w = [torch.randn((H, G), generator=gen, device=dev) * 0.05 for _ in range(2)]
     lens = torch.randint(4, QLEN + 1, (256,), generator=gen, device=dev, dtype=torch.int32)
@@ -141,11 +140,9 @@ def cases(gen):
             gate_sets.append(("appearance_bf16", xf.to(torch.bfloat16), xb.to(torch.bfloat16)))
         for case, gf, gb in gate_sets:
             fargs = (gf, gb, *w, lengths)
-            _, _, hprev, cprev = bilstm_train_fwd_reference(*fargs, with_outputs=outs)
             dfinal = torch.randn((r, 2 * H), generator=gen, device=dev)
             douts = torch.randn((r, t, 2 * H), generator=gen, device=dev) if outs else None
-            yield case, fargs, outs, (*fargs, hprev, cprev, dfinal, douts)
-            del hprev, cprev
+            yield case, fargs, outs, backward_args(forward(*fargs, with_outputs=outs), fargs, dfinal, douts)
 
 
 @torch.no_grad()
@@ -160,7 +157,7 @@ def measure():
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     times = {}
-    for name, fargs, outs, bargs in cases(torch.Generator(device="cuda").manual_seed(0)):
+    for name, fargs, outs, bargs in cases(torch.Generator(device="cuda").manual_seed(0), bilstm_train_fwd):
         times[f"kernel 1 {name}"] = time_ms(lambda: bilstm_recurrence(*fargs, with_outputs=outs))
         times[f"kernel 3 {name}"] = time_ms(lambda: bilstm_train_fwd(*fargs, with_outputs=outs))
         times[f"kernel 4 {name}"] = time_ms(lambda: bilstm_train_bwd(*bargs))
@@ -203,14 +200,17 @@ def against_baseline(baseline: Path):
 
 @torch.no_grad()
 def cuts():
-    from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_bwd_reference
+    from dualvgr_tpu_torch.ops.lstm_train_kernel import (
+        bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd_reference,
+    )
 
     _build.BUILD_DIR.mkdir(exist_ok=True)
     try:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
             libs = build_variants(Path(tmp))
             order = list(VARIANTS) + list(VARIANTS)[::-1]
-            for shape, _, _, args in cases(torch.Generator(device="cuda").manual_seed(0)):
+            for shape, _, _, args in cases(torch.Generator(device="cuda").manual_seed(0),
+                                           bilstm_train_fwd_reference):
                 want = bilstm_train_bwd_reference(*args)
                 times = {}
                 for name in order:

@@ -29,8 +29,9 @@
 //  2. one thread per (row, unit) adds the step's input gates (loaded into
 //     registers before the wait, so their latency hides behind it), applies
 //     the cell update and the packed-length mask, and stores the outputs
-//     (and kernel 3's residuals) of its own units; c and h of its pairs stay
-//     in its registers for the whole tile;
+//     (and kernel 3's residuals: the pre-step state and the gate
+//     activations) of its own units; c and h of its pairs stay in its
+//     registers for the whole tile;
 //  3. the new h slice, staged in shared memory, goes to every CTA of the
 //     cluster through distributed shared memory: one bulk async copy of the
 //     tile's rows per destination CTA, completing on the destination's
@@ -94,6 +95,9 @@ struct Params {
   float* hprev;  // kernel 3 only
   float* cprev;
   int T, R, H, units, tiles, clusters;
+  // kernel 3 only: the gate activations (2, T, R, 4H), last so that kernel
+  // 1's parameters keep their offsets
+  float* acts;
 };
 
 // The column stride of the W slice: H + 4 floats, so the distinct columns
@@ -358,11 +362,23 @@ __global__ void __launch_bounds__(kThreads, 1) recurrence_kernel(const Params p)
         // packed-sequence masks: the forward direction is valid while t < len;
         // the backward one (reversed time) from T - len on, zero before
         const bool valid = dir ? (t >= T - plen[s]) : (t < plen[s]);
+        // kernel 3 keeps the step's activations i, f, g, o for the backward,
+        // in the gates' layout; zeros at a masked step, which the backward
+        // multiplies by m = 0 (finite, whatever the padding's gates hold)
+        float* act = kResiduals ? p.acts + ((size_t)(dir * T + t) * R + grow) * 4 * H + unit0 + u : nullptr;
         if (valid) {
           const float ig = sigmoid_f(gate[0]), fg = sigmoid_f(gate[1]);
           const float gg = tanhf(gate[2]), og = sigmoid_f(gate[3]);
           creg[s] = fg * creg[s] + ig * gg;
           hreg[s] = og * tanhf(creg[s]);
+          if (kResiduals && store) {
+            const float a[4] = {ig, fg, gg, og};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) act[q * H] = a[q];
+          }
+        } else if (kResiduals && store) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) act[q * H] = 0.f;
         }
         stage[row * units + u] = hreg[s];
         if (p.outs != nullptr && store)

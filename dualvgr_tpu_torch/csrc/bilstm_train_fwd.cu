@@ -9,22 +9,26 @@
 // outputs (R, T, 2H) with the backward half back in original time order,
 // final state (R, 2H) = [h_fwd at len-1, h_bwd at t=0]. Besides, it stores
 // the state each step starts from, (h_{t-1}, c_{t-1}), into hprev and cprev
-// (T, R, 2H) in kernel time, [fwd | bwd] on the last axis: the backward
-// kernel (bilstm_train_bwd.cu) recomputes the gates from them and the
-// streamed gates, instead of keeping the (T, R, 4H) activations. The gates
-// may be bf16 (the appearance op under compute_dtype: bfloat16,
+// (T, R, 2H) in kernel time, [fwd | bwd] on the last axis, and the gate
+// activations (sigmoid i, sigmoid f, tanh g, sigmoid o) of every step into
+// acts (2, T, R, 4H), direction-major, each half in kernel time and the
+// gates' layout, zero at a masked step. The backward kernel
+// (bilstm_train_bwd.cu) reads the activations and c_{t-1} instead of
+// running the gate product a second time; hprev serves dW_hh outside. The
+// gates may be bf16 (the appearance op under compute_dtype: bfloat16,
 // lstm_pallas_train.py:392-405): read as bf16 and widened; everything
-// written (final, outs, the residuals) is fp32 either way, as in the TPU
-// kernel.
+// written (final, outs, the residuals, the activations) is fp32 either
+// way, as in the TPU kernel.
 //
 // Design: the eval kernel's, bilstm_cluster.cuh (W_hh resident in a
 // thread-block cluster, h exchanged through distributed shared memory). The
-// thread that updates a (row, unit) pair stores its residuals, coalesced
-// across the units of a row. Bound on the H100: the recurrent product is
-// fp32 FMA work on the CUDA cores, about 155 GFLOP for the appearance
-// encoder (T=16, R=4096, H=384), 2.3 ms at 67 TFLOP/s; the residuals add
-// 2 x 201 MB of stores at that shape, 0.12 ms of HBM time, so the kernel
-// stays bound by operations.
+// thread that updates a (row, unit) pair stores its residuals and
+// activations, coalesced across the units of a row. Bound on the H100: the
+// recurrent product is fp32 FMA work on the CUDA cores, about 155 GFLOP
+// for the appearance encoder (T=16, R=4096, H=384), 2.3 ms at 67 TFLOP/s;
+// the residuals add 2 x 201 MB of stores at that shape and the activations
+// 805 MB, 0.36 ms of HBM time together, so the kernel stays bound by
+// operations.
 
 #include "bilstm_cluster.cuh"
 
@@ -44,8 +48,8 @@ cudaError_t launch_as(const Params& p, int cluster, void* stream) {
 // return value as in bilstm_recurrence_launch.
 extern "C" int bilstm_train_fwd_launch(const void* xf, const void* xb, const void* whf,
                                        const void* whb, const void* lengths, void* final_out,
-                                       void* outs, void* hprev, void* cprev, int T, int R, int H,
-                                       int gate_dtype, int cluster, int units, int rows_per_tile,
+                                       void* outs, void* hprev, void* cprev, void* acts, int T, int R,
+                                       int H, int gate_dtype, int cluster, int units, int rows_per_tile,
                                        int clusters, void* stream) {
   if ((gate_dtype != 0 && gate_dtype != 1) ||
       !bilstm_cluster::check_plan(T, R, H, cluster, units, rows_per_tile, clusters))
@@ -53,7 +57,7 @@ extern "C" int bilstm_train_fwd_launch(const void* xf, const void* xb, const voi
   const Params p{xf, xb, static_cast<const float*>(whf), static_cast<const float*>(whb),
                  static_cast<const int*>(lengths), final_out, outs, static_cast<float*>(hprev),
                  static_cast<float*>(cprev), T, R, H, units, (R + rows_per_tile - 1) / rows_per_tile,
-                 clusters};
+                 clusters, static_cast<float*>(acts)};
   const cudaError_t err = gate_dtype == 1 ? launch_as<__nv_bfloat16>(p, cluster, stream)
                                           : launch_as<float>(p, cluster, stream);
   return (int)err;

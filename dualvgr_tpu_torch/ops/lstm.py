@@ -125,7 +125,7 @@ def lstm_unroll(params: LSTMParams, x, lengths=None):
     w_hh = params.w_hh.t()
     outs = []
     for t in range(t_total):
-        h_new, c_new = _lstm_step(xp[t] + h @ w_hh, c)
+        h_new, c_new, _ = _lstm_step(xp[t] + h @ w_hh, c)
         if lengths is None:
             h, c = h_new, c_new
             outs.append(h)

@@ -82,14 +82,12 @@ def smem_bytes(hidden, padded):
 
 def bwd_smem_bytes(hidden, padded):
     """One CTA's shared memory in kernel 4 (csrc/bilstm_train_bwd.cu, on the
-    forward's build constants): the mbarriers (64 bytes), then in fp32 the
-    W slice (GATE_COLS columns of H + 4), the h tile (rows of H + 4), the
-    gate product's partial sums (RED_BUFFERS x rows of RED_STRIDE; the
-    dgates reuse them) and the dh partials' receive buffer (rows of the
-    ``padded`` = cluster x units hidden size)."""
+    forward's build constants): two mbarriers (16 bytes), then in fp32 the
+    W slice (GATE_COLS columns of H + 4), the dgates tile (rows of
+    GATE_COLS) and the dh partials' receive buffer (rows of the ``padded``
+    = cluster x units hidden size)."""
     rows = ROWS_PER_TILE
-    return 4 * (16 + GATE_COLS * (hidden + 4) + rows * (hidden + 4) + RED_BUFFERS * rows * RED_STRIDE
-                + rows * padded)
+    return 16 + 4 * (GATE_COLS * (hidden + 4) + rows * GATE_COLS + rows * padded)
 
 
 def cluster_shape(hidden):
@@ -152,13 +150,15 @@ _active: dict = {}
 def active_clusters(lib, prefix, hidden, code):
     """How many clusters of ``<prefix>``'s kernel in ``lib`` the card keeps
     resident at once (``cudaOccupancyMaxActiveClusters``), asked once per
-    library, H and gate type. Raises if the card refuses the cluster."""
+    library, H and gate type (``code`` None for kernel 4, which has one
+    type). Raises if the card refuses the cluster."""
     key = (id(lib), prefix, hidden, code)
     if key not in _active:
         cluster, units = cluster_shape(hidden)
         fn = getattr(lib, f"{prefix}_active_clusters")
-        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
-        n = fn(hidden, cluster, units, code)
+        args = (hidden, cluster, units) + (() if code is None else (code,))
+        fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+        n = fn(*args)
         if n <= 0:
             raise RuntimeError(f"{prefix}: the card keeps no cluster of {cluster} CTAs resident "
                                f"(H = {hidden}; cudaError {-n})")
@@ -188,19 +188,23 @@ def plan_args(plan):
 
 
 def _lstm_step(gates, c):
+    """One step: ``(h, c, (i, f, g, o))``, the last the gate activations."""
     i, f, g, o = gates.chunk(4, dim=-1)
-    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return torch.sigmoid(o) * torch.tanh(c), c
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c = f * c + i * g
+    return o * torch.tanh(c), c, (i, f, g, o)
 
 
 def recurrence_loop(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False,
                     keep_states: bool = False):
     """The plain BiLSTM recurrence over precomputed gates.
 
-    Returns ``(final, outs, hprev, cprev)``: ``outs`` (R, T, 2H) or None
-    without ``with_outputs``; with ``keep_states`` the pre-step states
+    Returns ``(final, outs, hprev, cprev, acts)``: ``outs`` (R, T, 2H) or
+    None without ``with_outputs``; with ``keep_states`` the pre-step states
     ``(h_{t-1}, c_{t-1})`` of every step, (T, R, 2H) each in kernel time
-    (the backward half time-reversed), else None.
+    (the backward half time-reversed), and the gate activations (sigmoid
+    i, sigmoid f, tanh g, sigmoid o), (2, T, R, 4H) direction-major in
+    kernel time, zero at a masked step; else None for all three.
     """
     t_total, r, g = xf.shape
     hidden = g // 4
@@ -208,13 +212,13 @@ def recurrence_loop(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: b
     hf = cf = hb = cb = w_hh_f.new_zeros((r, hidden))
     if lengths is not None:
         lens = lengths.to(device=xf.device, dtype=torch.int64).view(r, 1)
-    outs_f, outs_b, hprev, cprev = [], [], [], []
+    outs_f, outs_b, hprev, cprev, acts_f, acts_b = [], [], [], [], [], []
     for t in range(t_total):
         if keep_states:
             hprev.append(torch.cat([hf, hb], dim=-1))
             cprev.append(torch.cat([cf, cb], dim=-1))
-        hf_new, cf_new = _lstm_step(xf[t] + hf @ w_hh_f, cf)
-        hb_new, cb_new = _lstm_step(xb_rev[t] + hb @ w_hh_b, cb)
+        hf_new, cf_new, af = _lstm_step(xf[t] + hf @ w_hh_f, cf)
+        hb_new, cb_new, ab = _lstm_step(xb_rev[t] + hb @ w_hh_b, cb)
         if lengths is None:
             hf, cf, hb, cb = hf_new, cf_new, hb_new, cb_new
             out_f, out_b = hf, hb
@@ -226,6 +230,12 @@ def recurrence_loop(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: b
             hf, cf = torch.where(m_f, hf_new, hf), torch.where(m_f, cf_new, cf)
             hb, cb = torch.where(m_b, hb_new, hb), torch.where(m_b, cb_new, cb)
             out_f, out_b = hf * m_f, hb * m_b
+        if keep_states:
+            af, ab = torch.cat(af, dim=-1), torch.cat(ab, dim=-1)
+            if lengths is not None:
+                af, ab = torch.where(m_f, af, 0.0), torch.where(m_b, ab, 0.0)
+            acts_f.append(af)
+            acts_b.append(ab)
         if with_outputs:
             outs_f.append(out_f)
             outs_b.append(out_b)
@@ -234,15 +244,16 @@ def recurrence_loop(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: b
     if with_outputs:
         outs = torch.cat([torch.stack(outs_f, 1), torch.stack(outs_b[::-1], 1)], dim=-1)
     if not keep_states:
-        return final, outs, None, None
-    return final, outs, torch.stack(hprev), torch.stack(cprev)
+        return final, outs, None, None, None
+    acts = torch.stack([torch.stack(acts_f), torch.stack(acts_b)])
+    return final, outs, torch.stack(hprev), torch.stack(cprev), acts
 
 
 def bilstm_recurrence_reference(
     xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False
 ):
     """Plain PyTorch version of the recurrence, with the kernel's contract."""
-    final, outs, _, _ = recurrence_loop(
+    final, outs, _, _, _ = recurrence_loop(
         xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs
     )
     final = final.to(xproj_f.dtype)
@@ -276,13 +287,13 @@ def gate_dtype_code(name, t):
     return GATE_DTYPES[t.dtype]
 
 
-def launch_fn(source, prefix, n_ptrs):
+def launch_fn(source, prefix, n_ptrs, typed=True):
     """``(library, <prefix>_launch)`` of ``csrc/<source>``: ``n_ptrs``
-    pointers, T, R, H, the gate type and the plan's four numbers, then the
-    stream."""
+    pointers, T, R, H, the gate type (unless not ``typed``: kernel 4) and
+    the plan's four numbers, then the stream."""
     lib = _build.load(source)
     fn = getattr(lib, f"{prefix}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * (8 if typed else 7) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 

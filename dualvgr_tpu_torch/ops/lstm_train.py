@@ -2,11 +2,13 @@
 
 The autograd half of ``dualvgr_tpu/ops/lstm_pallas_train.py``. Both
 Functions run the training forward (``bilstm_train_fwd``, which keeps the
-pre-step states as residuals) and, in the backward, the reverse-time kernel
-(``bilstm_train_bwd``), which gives the dgates. The recurrent weights'
-gradient ``dW_hh = sum_t h_{t-1}^T dgates`` is one plain product per
-direction over ``(T*R, H)^T @ (T*R, 4H)``, outside the kernel, as the JAX
-package leaves it to XLA (``lstm_pallas_train.py:274-277``).
+pre-step states and the gate activations) and, in the backward, the
+reverse-time kernel (``bilstm_train_bwd``), which gives the dgates from the
+activations and c_{t-1}. They save the activations, fp32 (2, T, R, 4H), in
+place of the gate inputs, which are then freed after the forward. The
+recurrent weights' gradient ``dW_hh = sum_t h_{t-1}^T dgates`` is one plain
+product per direction over ``(T*R, H)^T @ (T*R, 4H)``, outside the kernel,
+as the JAX package leaves it to XLA (``lstm_pallas_train.py:274-277``).
 
 * ``BiLSTMTrainable`` (``bilstm_trainable``), the twin of
   ``bilstm_trainable``: the full VJP over the gate inputs and W_hh. The input
@@ -21,9 +23,9 @@ package leaves it to XLA (``lstm_pallas_train.py:274-277``).
   refuses an x that requires grad. Under a stream dtype
   (``lstm_pallas_train.py:376-475``) the forward projection is one launch
   of kernel 6 (``ops/proj_kernel.py::input_proj_both``, no tanh) on the
-  bf16-rounded x, whose bf16 gates kernels 3 and 4 read; x is saved in
-  bf16 for the backward, which gives dW_ih as a bf16-operand product with
-  fp32 output and db from the fp32 dgates.
+  bf16-rounded x, whose bf16 gates kernel 3 reads; x is saved in bf16 for
+  the backward, which gives dW_ih as a bf16-operand product with fp32
+  output and db from the fp32 dgates.
 
 Weights come in as (H, 4H) recurrent matrices (``weight_hh.t().contiguous()``)
 and, for the appearance op, torch-layout (4H, D) input matrices and one
@@ -73,19 +75,19 @@ class BiLSTMTrainable(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xf, xb_rev, w_hh_f, w_hh_b, lengths, with_outputs):
-        final, outs, hprev, cprev = bilstm_train_fwd(
+        final, outs, hprev, cprev, acts = bilstm_train_fwd(
             xf, xb_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs
         )
-        ctx.save_for_backward(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev)
+        ctx.save_for_backward(acts, w_hh_f, w_hh_b, lengths, hprev, cprev)
         ctx.with_outputs = with_outputs
         return (final, outs) if with_outputs else final
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dfinal, douts=None):
-        xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev = ctx.saved_tensors
+        acts, w_hh_f, w_hh_b, lengths, hprev, cprev = ctx.saved_tensors
         dxf, dxb = bilstm_train_bwd(
-            xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal.contiguous(),
+            acts, w_hh_f, w_hh_b, lengths, cprev, dfinal.contiguous(),
             douts.contiguous() if ctx.with_outputs else None,
         )
         dwf, dwb = recurrent_weight_grads(hprev, dxf, dxb)
@@ -117,15 +119,15 @@ class AppearanceBiLSTMTrain(torch.autograd.Function):
             # rounded x, rounded once after the fp32 bias (the JAX _proj)
             x = x.to(stream_dtype)
             xf, xb = input_proj_both(x, w_ih_f, b_f, w_ih_b, b_b, fuse_tanh=False)
-        final, _, hprev, cprev = bilstm_train_fwd(xf, xb, w_hh_f, w_hh_b)
-        ctx.save_for_backward(x, xf, xb, w_hh_f, w_hh_b, hprev, cprev)
+        final, _, hprev, cprev, acts = bilstm_train_fwd(xf, xb, w_hh_f, w_hh_b)
+        ctx.save_for_backward(x, acts, w_hh_f, w_hh_b, hprev, cprev)
         return final
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dfinal):
-        x, xf, xb, w_hh_f, w_hh_b, hprev, cprev = ctx.saved_tensors
-        dxf, dxb = bilstm_train_bwd(xf, xb, w_hh_f, w_hh_b, None, hprev, cprev, dfinal.contiguous())
+        x, acts, w_hh_f, w_hh_b, hprev, cprev = ctx.saved_tensors
+        dxf, dxb = bilstm_train_bwd(acts, w_hh_f, w_hh_b, None, cprev, dfinal.contiguous())
         dwhf, dwhb = recurrent_weight_grads(hprev, dxf, dxb)
         # dW_ih = sum over (t, r) of dxproj^T x, the backward direction's
         # dgates flipped back to original time; one product per direction.

@@ -4,24 +4,32 @@ The kernel half of ``dualvgr_tpu/ops/lstm_pallas_train.py``:
 
 * ``bilstm_train_fwd`` replaces ``_run_fwd_m`` (body ``_fwd_kernel_m``):
   kernel 1's recurrence (``ops/lstm_kernel.py``), which also stores the
-  pre-step states ``(h_{t-1}, c_{t-1})`` of every step as residuals.
-  Returns ``(final, outs, hprev, cprev)``: final (R, 2H); outs (R, T, 2H)
-  or None, zero at padding, the backward half back in original time order
-  (kernel 1's layout; the TPU kernel keeps it in kernel time and flips it
-  outside); hprev and cprev (T, R, 2H) in kernel time for both directions.
+  pre-step states ``(h_{t-1}, c_{t-1})`` of every step as residuals, and
+  the gate activations. Returns ``(final, outs, hprev, cprev, acts)``:
+  final (R, 2H); outs (R, T, 2H) or None, zero at padding, the backward
+  half back in original time order (kernel 1's layout; the TPU kernel
+  keeps it in kernel time and flips it outside); hprev and cprev (T, R,
+  2H) in kernel time for both directions; acts (2, T, R, 4H), the
+  activations sigmoid i, sigmoid f, tanh g, sigmoid o of each step,
+  direction-major, each in kernel time, zero at a masked step (so the
+  backward's m = 0 meets nothing non-finite, whatever the padding's gates
+  hold).
 * ``bilstm_train_bwd`` replaces ``_run_bwd_m`` (body ``_bwd_kernel_m``): the
-  reverse-time backward. It recomputes the gates from the residuals,
+  reverse-time backward. It reads the forward's activations and c_{t-1}
+  (where the TPU kernel recomputes the gates from the inputs and h_{t-1}),
   carries ``(dh, dc)`` and returns ``(dxf, dxb)``, the gradients of the
   gate inputs (T, R, 4H) in kernel time, which are the dgates. ``douts``
   is read in the layout ``outs`` has. dW_hh is left to one plain product
-  outside (``ops/lstm_train.py``), as the JAX package leaves it to XLA.
+  outside (``ops/lstm_train.py``) over hprev, as the JAX package leaves it
+  to XLA.
 
-The inputs are kernel 1's: gates ``xf`` (T, R, 4H) and time-reversed
-``xb_rev``, recurrent weights ``w_hh_*`` (H, 4H), optional (R,) lengths.
-The gates may be fp32 or bf16 (the appearance op under ``compute_dtype:
-bfloat16``, ``lstm_pallas_train.py:392-405``); the weights, the
-residuals, ``final``, ``outs`` and the dgates are fp32 either way, as in
-the TPU kernels. On a CPU tensor each wrapper runs its ``*_reference``,
+The forward's inputs are kernel 1's: gates ``xf`` (T, R, 4H) and
+time-reversed ``xb_rev``, recurrent weights ``w_hh_*`` (H, 4H), optional
+(R,) lengths. The gates may be fp32 or bf16 (the appearance op under
+``compute_dtype: bfloat16``, ``lstm_pallas_train.py:392-405``); the
+weights, the residuals, the activations, ``final``, ``outs`` and the
+dgates are fp32 either way, as in the TPU kernels, so the backward has
+one type. On a CPU tensor each wrapper runs its ``*_reference``,
 the plain PyTorch loop; on a CUDA tensor it launches
 ``csrc/bilstm_train_fwd.cu`` or ``csrc/bilstm_train_bwd.cu`` or raises. Both
 are thread-block cluster kernels with each CTA's slice of W_hh resident in
@@ -40,6 +48,7 @@ from dualvgr_tpu_torch.ops.lstm_kernel import (
     MAX_HIDDEN, _check, backward_plan, gate_dtype_code, launch_fn, launch_plan, plan_args, recurrence_loop,
     refuse_autograd,
 )
+from dualvgr_tpu_torch.utils.trace import count
 
 
 def bilstm_train_fwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False):
@@ -48,7 +57,7 @@ def bilstm_train_fwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with
                            keep_states=True)
 
 
-def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, douts=None):
+def bilstm_train_bwd_reference(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts=None):
     """Plain PyTorch version of the training backward, with the kernel's contract.
 
     With ``m`` the step's mask (1 without lengths), a masked step passes
@@ -57,23 +66,20 @@ def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev
     ``dc~ = m dc``, ``dc_prev += (1 - m) dc``, so the dgates of a masked
     step are exactly zero.
     """
-    t_total, r, g = xf.shape
+    _, t_total, r, g = acts.shape
     hidden = g // 4
     if lengths is not None:
-        lens = lengths.to(device=xf.device, dtype=torch.int64).view(r, 1)
-    # carries and dgates in the weights' dtype: fp32 for fp32 or bf16 gates
+        lens = lengths.to(device=acts.device, dtype=torch.int64).view(r, 1)
     one = w_hh_f.new_ones(())
     dxs = []
-    for k, (x, w) in enumerate(((xf, w_hh_f), (xb_rev, w_hh_b))):
+    for k, w in enumerate((w_hh_f, w_hh_b)):
         cols = slice(k * hidden, (k + 1) * hidden)
-        dx = w.new_empty(x.shape)
+        dx = w.new_empty(acts.shape[1:])
         dh, dc = dfinal[:, cols], w.new_zeros((r, hidden))
         for t in reversed(range(t_total)):
-            h_prev, c_prev = hprev[t, :, cols], cprev[t, :, cols]
-            gi, gf, gg, go = (x[t] + h_prev @ w).chunk(4, dim=-1)
-            i, f, gc, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
-            c = f * c_prev + i * gc
-            tc = torch.tanh(c)
+            c_prev = cprev[t, :, cols]
+            i, f, gc, o = acts[k, t].chunk(4, dim=-1)
+            tc = torch.tanh(f * c_prev + i * gc)
             if lengths is None:
                 m = one
             else:
@@ -94,29 +100,22 @@ def bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev
     return dxs[0], dxs[1]
 
 
-def _check_common(name, xf, xb_rev, w_hh_f, w_hh_b, lengths):
-    """Device, type, shape and contiguity checks shared by both wrappers;
-    returns (device, T, R, H, lengths as contiguous int32 or None, the
-    gates' dtype code)."""
-    if xf.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA, not {xf.device}")
-    dev = xf.device
-    if xf.dim() != 3:
-        raise ValueError(f"xf must be (T, R, 4H), got {tuple(xf.shape)}")
-    t_total, r, g = xf.shape
+def _lengths(lengths, r, dev):
+    """``lengths`` as contiguous int32 on ``dev`` (None stays None); raises
+    unless it is integer (R,)."""
+    if lengths is None:
+        return None
+    if lengths.dtype.is_floating_point or tuple(lengths.shape) != (r,):
+        raise ValueError(f"lengths must be integer (R,) = ({r},), got {lengths.dtype} {tuple(lengths.shape)}")
+    return lengths.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def _hidden(g):
+    """H of 4H = ``g`` gate columns; raises where the kernels cannot take it."""
     hidden = g // 4
     if g % 4 or hidden % 4 or hidden > MAX_HIDDEN:
         raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
-    code = gate_dtype_code("xf", xf)
-    _check("xf", xf, (t_total, r, g), dev, xf.dtype)
-    _check("xb_rev", xb_rev, (t_total, r, g), dev, xf.dtype)
-    _check("w_hh_f", w_hh_f, (hidden, g), dev)
-    _check("w_hh_b", w_hh_b, (hidden, g), dev)
-    if lengths is not None:
-        if lengths.dtype.is_floating_point or tuple(lengths.shape) != (r,):
-            raise ValueError(f"lengths must be integer (R,) = ({r},), got {lengths.dtype} {tuple(lengths.shape)}")
-        lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
-    return dev, t_total, r, hidden, lengths, code
+    return hidden
 
 
 def _ptr(t):
@@ -124,56 +123,76 @@ def _ptr(t):
 
 
 def bilstm_train_fwd(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False):
-    """Training forward (see the module docstring): ``(final, outs, hprev, cprev)``."""
+    """Training forward (see the module docstring): ``(final, outs, hprev, cprev, acts)``.
+    On the card it counts the bytes of activations it keeps in the
+    tracer's ``lstm.gate_acts_bytes``."""
     refuse_autograd("bilstm_train_fwd", xf, xb_rev, w_hh_f, w_hh_b)
     if xf.device.type == "cpu":
         return bilstm_train_fwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs)
-    dev, t_total, r, hidden, lengths, code = _check_common("bilstm_train_fwd", xf, xb_rev, w_hh_f, w_hh_b,
-                                                           lengths)
+    if xf.device.type != "cuda":
+        raise ValueError(f"bilstm_train_fwd runs on CPU or CUDA, not {xf.device}")
+    dev = xf.device
+    if xf.dim() != 3:
+        raise ValueError(f"xf must be (T, R, 4H), got {tuple(xf.shape)}")
+    t_total, r, g = xf.shape
+    hidden = _hidden(g)
+    code = gate_dtype_code("xf", xf)
+    _check("xf", xf, (t_total, r, g), dev, xf.dtype)
+    _check("xb_rev", xb_rev, (t_total, r, g), dev, xf.dtype)
+    _check("w_hh_f", w_hh_f, (hidden, g), dev)
+    _check("w_hh_b", w_hh_b, (hidden, g), dev)
+    lengths = _lengths(lengths, r, dev)
     final = torch.empty((r, 2 * hidden), device=dev, dtype=torch.float32)
     outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=torch.float32) if with_outputs else None
     hprev, cprev = (torch.empty((t_total, r, 2 * hidden), device=dev, dtype=torch.float32) for _ in range(2))
+    acts = torch.empty((2, t_total, r, g), device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, fn = launch_fn("bilstm_train_fwd.cu", "bilstm_train_fwd", 9)
+        lib, fn = launch_fn("bilstm_train_fwd.cu", "bilstm_train_fwd", 10)
         plan = launch_plan(lib, "bilstm_train_fwd", r, hidden, code)
         err = fn(
             xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths),
-            final.data_ptr(), _ptr(outs), hprev.data_ptr(), cprev.data_ptr(),
+            final.data_ptr(), _ptr(outs), hprev.data_ptr(), cprev.data_ptr(), acts.data_ptr(),
             t_total, r, hidden, code, *plan_args(plan), stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_train_fwd launch failed: cudaError {err}")
     bilstm_train_fwd.launches += 1
-    return final, outs, hprev, cprev
+    count("lstm.gate_acts_bytes", acts.numel() * acts.element_size())
+    return final, outs, hprev, cprev, acts
 
 
-def bilstm_train_bwd(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, douts=None):
-    """Training backward (see the module docstring): ``(dxf, dxb)``.
-    ``douts`` is None for a final-only forward and is then never read."""
-    refuse_autograd("bilstm_train_bwd", xf, xb_rev, w_hh_f, w_hh_b, hprev, cprev, dfinal, douts)
-    if xf.device.type == "cpu":
-        return bilstm_train_bwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, hprev, cprev, dfinal, douts)
-    dev, t_total, r, hidden, lengths, code = _check_common("bilstm_train_bwd", xf, xb_rev, w_hh_f, w_hh_b,
-                                                           lengths)
-    _check("hprev", hprev, (t_total, r, 2 * hidden), dev)
+def bilstm_train_bwd(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts=None):
+    """Training backward (see the module docstring): ``(dxf, dxb)`` from the
+    forward's ``acts`` and ``cprev``. ``douts`` is None for a final-only
+    forward and is then never read."""
+    refuse_autograd("bilstm_train_bwd", acts, w_hh_f, w_hh_b, cprev, dfinal, douts)
+    if acts.device.type == "cpu":
+        return bilstm_train_bwd_reference(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts)
+    if acts.device.type != "cuda":
+        raise ValueError(f"bilstm_train_bwd runs on CPU or CUDA, not {acts.device}")
+    dev = acts.device
+    if acts.dim() != 4 or acts.shape[0] != 2:
+        raise ValueError(f"acts must be (2, T, R, 4H), got {tuple(acts.shape)}")
+    _, t_total, r, g = acts.shape
+    hidden = _hidden(g)
+    _check("acts", acts, (2, t_total, r, g), dev)
+    _check("w_hh_f", w_hh_f, (hidden, g), dev)
+    _check("w_hh_b", w_hh_b, (hidden, g), dev)
     _check("cprev", cprev, (t_total, r, 2 * hidden), dev)
     _check("dfinal", dfinal, (r, 2 * hidden), dev)
     if douts is not None:
         _check("douts", douts, (r, t_total, 2 * hidden), dev)
-    # the kernel copies hprev's rows into shared memory with bulk async
-    # copies, which need 16-byte aligned addresses
-    if hprev.data_ptr() % 16:
-        raise ValueError("hprev must start on a 16-byte aligned address")
-    dxf, dxb = (torch.empty(xf.shape, device=dev, dtype=torch.float32) for _ in range(2))
+    lengths = _lengths(lengths, r, dev)
+    dxf, dxb = (torch.empty((t_total, r, g), device=dev, dtype=torch.float32) for _ in range(2))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, fn = launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 11)
-        plan = launch_plan(lib, "bilstm_train_bwd", r, hidden, code, plan=backward_plan)
+        lib, fn = launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 9, typed=False)
+        plan = launch_plan(lib, "bilstm_train_bwd", r, hidden, None, plan=backward_plan)
         err = fn(
-            xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths),
-            hprev.data_ptr(), cprev.data_ptr(), dfinal.data_ptr(), _ptr(douts), dxf.data_ptr(), dxb.data_ptr(),
-            t_total, r, hidden, code, *plan_args(plan), stream,
+            acts.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths), cprev.data_ptr(),
+            dfinal.data_ptr(), _ptr(douts), dxf.data_ptr(), dxb.data_ptr(), t_total, r, hidden, *plan_args(plan),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"bilstm_train_bwd launch failed: cudaError {err}")

@@ -61,7 +61,10 @@ producer; ``prefetch.bytes`` (bytes issued host to device) and
 (``train_lib.train_step``: steps captured, replayed, taken eagerly; a
 captured step is replayed too, so replays over all steps is the share the
 graph took); ``model.unit_cycles`` (the unit cycles the model's forwards
-ran; a replayed step runs them without the host, so counts none).
+ran; a replayed step runs them without the host, so counts none);
+``lstm.gate_acts_bytes`` (``ops/lstm_train_kernel.py::bilstm_train_fwd``:
+the bytes of gate activations kernel 3 keeps for kernel 4, a launch on the
+card; eager and captured steps only, as ``model.unit_cycles``).
 """
 
 from __future__ import annotations

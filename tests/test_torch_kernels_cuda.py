@@ -102,10 +102,10 @@ def test_cluster_kernels_are_deterministic(rs, cuda):
         for a, b in zip(*runs):
             if a is not None:
                 assert torch.equal(a, b)
-    _, _, hprev, cprev = lstm_train_kernel.bilstm_train_fwd_reference(xf, xb, wf, wb, lens, with_outputs=True)
+    # kernel 4 on kernel 3's activations and c_{t-1}
+    *_, cprev, acts = runs[0]
     dfinal, douts = _t(rs, cuda, r, 2 * h), _t(rs, cuda, r, t, 2 * h)
-    runs = [lstm_train_kernel.bilstm_train_bwd(xf, xb, wf, wb, lens, hprev, cprev, dfinal, douts)
-            for _ in range(2)]
+    runs = [lstm_train_kernel.bilstm_train_bwd(acts, wf, wb, lens, cprev, dfinal, douts) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -128,18 +128,19 @@ def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
         assert fn(*ptrs, t, r, h, 0, *bad, stream) == 1, bad
     assert fn(*ptrs, t, r, h, 0, *good, stream) == 0
     torch.cuda.synchronize()
-    # kernel 4's entry checks its own plan the same way
+    # kernel 4's entry checks its own plan the same way (it takes no gate type)
+    acts = torch.sigmoid(_t(rs, cuda, 2, t, r, 4 * h))
     res = _t(rs, cuda, t, r, 2 * h)
     dx = torch.empty(t, r, 4 * h, device=cuda)
-    lib, fn = lstm_kernel.launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 11)
-    plan = lstm_kernel.launch_plan(lib, "bilstm_train_bwd", r, h, 0, plan=lstm_kernel.backward_plan)
+    lib, fn = lstm_kernel.launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 9, typed=False)
+    plan = lstm_kernel.launch_plan(lib, "bilstm_train_bwd", r, h, None, plan=lstm_kernel.backward_plan)
     good = lstm_kernel.plan_args(plan)
-    ptrs = (xf.data_ptr(), xf.data_ptr(), w.data_ptr(), w.data_ptr(), None, res.data_ptr(), res.data_ptr(),
-            final.data_ptr(), None, dx.data_ptr(), dx.data_ptr())
+    ptrs = (acts.data_ptr(), w.data_ptr(), w.data_ptr(), None, res.data_ptr(), final.data_ptr(), None,
+            dx.data_ptr(), dx.data_ptr())
     for bad in ((8,) + good[1:], (16, 20) + good[2:], good[:2] + (8, good[3]), good[:3] + (0,),
                 good[:3] + (2 * plan.tiles + 1,)):
-        assert fn(*ptrs, t, r, h, 0, *bad, stream) == 1, bad
-    assert fn(*ptrs, t, r, h, 0, *good, stream) == 0
+        assert fn(*ptrs, t, r, h, *bad, stream) == 1, bad
+    assert fn(*ptrs, t, r, h, *good, stream) == 0
     torch.cuda.synchronize()
 
 
@@ -305,21 +306,69 @@ def test_train_kernels_match_plain(rs, cuda, r, t, h, masked, with_outputs):
     got = lstm_train_kernel.bilstm_train_fwd(xf, xb, wf, wb, lens, with_outputs=with_outputs)
     torch.cuda.synchronize()
     want = lstm_train_kernel.bilstm_train_fwd_reference(xf, xb, wf, wb, lens, with_outputs=with_outputs)
-    for a, b, name in zip(got, want, ("final", "outs", "hprev", "cprev")):
+    for a, b, name in zip(got, want, ("final", "outs", "hprev", "cprev", "acts")):
         if b is None:
             assert a is None
             continue
         _close(a, b, 1e-4, name)
-    _, _, hprev, cprev = want
     dfinal = _t(rs, cuda, r, 2 * h)
     douts = _t(rs, cuda, r, t, 2 * h) if with_outputs else None
-    got = lstm_train_kernel.bilstm_train_bwd(xf, xb, wf, wb, lens, hprev, cprev, dfinal, douts)
+    # kernel 4 on kernel 3's activations and c_{t-1}; the plain backward on the plain forward's
+    got = lstm_train_kernel.bilstm_train_bwd(got[4], wf, wb, lens, got[3], dfinal, douts)
     torch.cuda.synchronize()
     assert (lstm_train_kernel.bilstm_train_fwd.launches, lstm_train_kernel.bilstm_train_bwd.launches) == (
         n0[0] + 1, n0[1] + 1)
-    want = lstm_train_kernel.bilstm_train_bwd_reference(xf, xb, wf, wb, lens, hprev, cprev, dfinal, douts)
+    want = lstm_train_kernel.bilstm_train_bwd_reference(want[4], wf, wb, lens, want[3], dfinal, douts)
     for a, b, name in zip(got, want, ("dxf", "dxb")):
         _close(a, b, 1e-3, name)
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_train_forward_counts_the_activation_bytes_it_keeps(rs, cuda, on):
+    """Each launch of kernel 3 counts the bytes of its ``acts``, (2, T, R,
+    4H) fp32, in ``lstm.gate_acts_bytes``, with fp32 or bf16 gates; with
+    the tracer off nothing is recorded."""
+    from dualvgr_tpu_torch.utils import trace
+
+    want = 0
+    trace.counters()  # what an earlier test left unread
+    if on:
+        trace.enable()
+    try:
+        for r, t, h, dtype in ((37, 5, 16, torch.float32), (256, 24, 384, torch.bfloat16)):
+            xf, xb = _t(rs, cuda, t, r, 4 * h).to(dtype), _t(rs, cuda, t, r, 4 * h).to(dtype)
+            wf, wb = _t(rs, cuda, h, 4 * h, scale=0.1), _t(rs, cuda, h, 4 * h, scale=0.1)
+            acts = lstm_train_kernel.bilstm_train_fwd(xf, xb, wf, wb)[4]
+            assert acts.dtype == torch.float32 and acts.shape == (2, t, r, 4 * h)
+            want += 2 * t * r * 4 * h * 4
+    finally:
+        trace.disable()
+    assert trace.counters() == ({"lstm.gate_acts_bytes": want} if on else {})
+
+
+@pytest.mark.parametrize("r,t,h,with_outputs", [(37, 5, 16, True), (256, 24, 384, False)])
+def test_train_kernels_keep_nan_padding_out_of_the_dgates(rs, cuda, r, t, h, with_outputs):
+    """Gates that are NaN at every masked step: kernel 3 stores zero
+    activations there, so kernel 4's m = 0 meets nothing non-finite and
+    the dgates equal the plain pair's, zero at the masked steps."""
+    g = 4 * h
+    xf, xb = _t(rs, cuda, t, r, g), _t(rs, cuda, t, r, g)
+    wf, wb = _t(rs, cuda, h, g, scale=0.1), _t(rs, cuda, h, g, scale=0.1)
+    lens = torch.from_numpy(rs.randint(1, t + 1, (r,)).astype(np.int32)).to(cuda)
+    steps = torch.arange(t, device=cuda)[:, None]
+    xf[steps >= lens[None, :]] = float("nan")
+    xb[steps < t - lens[None, :]] = float("nan")
+    got = lstm_train_kernel.bilstm_train_fwd(xf, xb, wf, wb, lens, with_outputs=with_outputs)
+    want = lstm_train_kernel.bilstm_train_fwd_reference(xf, xb, wf, wb, lens, with_outputs=with_outputs)
+    dfinal = _t(rs, cuda, r, 2 * h)
+    douts = _t(rs, cuda, r, t, 2 * h) if with_outputs else None
+    got = lstm_train_kernel.bilstm_train_bwd(got[4], wf, wb, lens, got[3], dfinal, douts)
+    torch.cuda.synchronize()
+    want = lstm_train_kernel.bilstm_train_bwd_reference(want[4], wf, wb, lens, want[3], dfinal, douts)
+    for a, b, name in zip(got, want, ("dxf", "dxb")):
+        assert torch.isfinite(a).all(), name
+        _close(a, b, 1e-3, name)
+    assert not got[0][steps >= lens[None, :]].any() and not got[1][steps < t - lens[None, :]].any()
 
 
 @pytest.mark.parametrize("masked,with_outputs", [(False, False), (True, True), (True, False)])
@@ -533,16 +582,15 @@ def test_train_kernels_with_bf16_gates_match_plain(rs, cuda, r, t, h):
     got = lstm_train_kernel.bilstm_train_fwd(xf, xb, wf, wb)
     torch.cuda.synchronize()
     want = lstm_train_kernel.bilstm_train_fwd_reference(xf, xb, wf, wb)
-    for a, b, name in zip(got, want, ("final", "outs", "hprev", "cprev")):
+    for a, b, name in zip(got, want, ("final", "outs", "hprev", "cprev", "acts")):
         if b is None:
             continue
         assert a.dtype == torch.float32, name
         _close(a, b, 1e-4, name)
-    _, _, hprev, cprev = want
     dfinal = _t(rs, cuda, r, 2 * h)
-    got = lstm_train_kernel.bilstm_train_bwd(xf, xb, wf, wb, None, hprev, cprev, dfinal)
+    got = lstm_train_kernel.bilstm_train_bwd(got[4], wf, wb, None, got[3], dfinal)
     torch.cuda.synchronize()
-    want = lstm_train_kernel.bilstm_train_bwd_reference(xf, xb, wf, wb, None, hprev, cprev, dfinal)
+    want = lstm_train_kernel.bilstm_train_bwd_reference(want[4], wf, wb, None, want[3], dfinal)
     for a, b, name in zip(got, want, ("dxf", "dxb")):
         assert a.dtype == torch.float32, name
         _close(a, b, 1e-3, name)

@@ -73,7 +73,7 @@ def test_reference_pair_matches_pallas_interpret(rng, interpret, masked, with_ou
 
     t_in = [torch.from_numpy(a) for a in (xf, xb, wf, wb)]
     t_lens = torch.from_numpy(lens) if masked else None
-    final, outs, hprev, cprev = lstm_train_kernel.bilstm_train_fwd_reference(
+    final, outs, hprev, cprev, acts = lstm_train_kernel.bilstm_train_fwd_reference(
         *t_in, t_lens, with_outputs=with_outputs
     )
     np.testing.assert_allclose(final.numpy(), np.asarray(want_final), atol=ATOL)
@@ -85,7 +85,7 @@ def test_reference_pair_matches_pallas_interpret(rng, interpret, masked, with_ou
         assert outs is None
 
     dxf, dxb = lstm_train_kernel.bilstm_train_bwd_reference(
-        *t_in, t_lens, hprev, cprev, torch.from_numpy(dfinal),
+        acts, *t_in[2:], t_lens, cprev, torch.from_numpy(dfinal),
         torch.from_numpy(douts) if with_outputs else None,
     )
     np.testing.assert_allclose(dxf.numpy(), np.asarray(want_dxf), atol=ATOL)
@@ -98,6 +98,85 @@ def test_reference_pair_matches_pallas_interpret(rng, interpret, masked, with_ou
         steps = np.arange(T)[:, None]
         assert not dxf.numpy()[steps >= lens[None, :]].any()
         assert not dxb.numpy()[steps < T - lens[None, :]].any()
+
+
+def _plain_lstm_by_row(xf, xb, wf, wb, lens, with_outputs):
+    """A plain fp32 BiLSTM written apart from the port's: one row at a time
+    over its valid steps only, so autograd never touches a padded gate.
+    ``(final, outs)`` in the trainable op's layout."""
+    t_total, r, g = xf.shape
+    h = g // 4
+
+    def run(x, w, row, steps):
+        hh, c, hs = x.new_zeros(h), x.new_zeros(h), []
+        for t in steps:
+            i, f, gg, o = (x[t, row] + hh @ w).chunk(4)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+            hh = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(hh)
+        return hh, hs
+
+    finals, outs = [], []
+    for row in range(r):
+        n = t_total if lens is None else int(lens[row])
+        hf, hs_f = run(xf, wf, row, range(n))
+        # the backward direction's kernel step t is original time T - 1 - t
+        hb, hs_b = run(xb, wb, row, range(t_total - n, t_total))
+        finals.append(torch.cat([hf, hb]))
+        if with_outputs:
+            pad = [xf.new_zeros(2 * h)] * (t_total - n)
+            outs.append(torch.stack([torch.cat(p) for p in zip(hs_f, hs_b[::-1])] + pad))
+    return torch.stack(finals), (torch.stack(outs) if with_outputs else None)
+
+
+@pytest.mark.parametrize("masked,with_outputs,h,nan_padding", [
+    (False, False, 16, False),
+    (False, True, 16, False),
+    (True, True, 16, False),
+    (True, False, 16, False),
+    (False, False, 384, False),
+    (True, True, 384, False),
+    (True, True, 16, True),    # the padding's gates NaN: the stored activations stay finite
+    (True, False, 384, True),
+])
+def test_dgates_from_stored_activations_match_autograd_of_a_plain_lstm(rng, masked, with_outputs, h, nan_padding):
+    """The trainable op, whose backward reads the activations its forward
+    stored (zero at a masked step), against autograd of a plain fp32 LSTM:
+    the outputs, the dgates (the gate inputs' gradients) and dW_hh."""
+    t, r = 5, 6
+    xf, xb, wf, wb, lens = _kernel_inputs(rng, t=t, r=r, h=h)
+    wf, wb = (w * np.float32(2.0 / np.sqrt(h)) for w in (wf, wb))
+    if nan_padding:
+        steps = np.arange(t)[:, None]
+        xf[steps >= lens[None, :]] = np.nan
+        xb[steps < t - lens[None, :]] = np.nan
+    t_lens = torch.from_numpy(lens) if masked else None
+    cot_f = torch.from_numpy(rng.randn(r, 2 * h).astype(np.float32))
+    cot_o = torch.from_numpy(rng.randn(r, t, 2 * h).astype(np.float32))
+
+    def run(fn):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (xf, xb, wf, wb)]
+        final, outs = fn(*leaves, t_lens, with_outputs)
+        loss = (final * cot_f).sum() + ((outs * cot_o).sum() if with_outputs else 0.0)
+        loss.backward()
+        return [final, outs] + [p.grad for p in leaves]
+
+    got = run(lambda *a: lstm_train.bilstm_trainable(*a[:5], with_outputs=a[5]))
+    want = run(_plain_lstm_by_row)
+    for g, w, name in zip(got, want, ("final", "outs", "dxf", "dxb", "dwf", "dwb")):
+        if w is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), rtol=1e-5, atol=ATOL, err_msg=name)
+
+    *_, acts = lstm_train_kernel.bilstm_train_fwd_reference(*(torch.from_numpy(a) for a in (xf, xb, wf, wb)),
+                                                             t_lens, with_outputs=with_outputs)
+    assert acts.shape == (2, t, r, 4 * h) and torch.isfinite(acts).all()
+    if masked:
+        steps = torch.arange(t)[:, None]
+        t_lens = t_lens[None, :]
+        assert not acts[0][steps >= t_lens].any() and not acts[1][steps < t - t_lens].any()
 
 
 def _plain_bilstm(xf, xb, wf, wb, lens, with_outputs):
