@@ -195,7 +195,6 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import ctypes
 import importlib.util
 import io
 import json
@@ -219,6 +218,7 @@ from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch import predict as tpredict
 from dualvgr_tpu_torch.bench import extraction_bench, proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
+from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.bench.zoo_check import TOL as TOL_ZOO
 from dualvgr_tpu_torch.bench.zoo_check import check_zoo
 from dualvgr_tpu_torch.config import cfg_from_file, resolve_dataset_paths
@@ -226,9 +226,9 @@ from dualvgr_tpu_torch.data import FeatureStore, native
 from dualvgr_tpu_torch.data.questions import encode_tokens, tokenize_question
 from dualvgr_tpu_torch.data.vocab import load_vocab
 from dualvgr_tpu_torch.export import export_serving, graph_ops, load_artifact, model_from_checkpoint, save_artifact
-from dualvgr_tpu_torch.ops import _build
+from dualvgr_tpu_torch.ops import COUNTED_KERNELS, _build, launch_counts
 from dualvgr_tpu_torch.ops.dropout import Dropout
-from dualvgr_tpu_torch.ops import gat_kernel
+from dualvgr_tpu_torch.ops import gat_kernel, proj_kernel
 from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle, gat_cycle_reference
 from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
 from dualvgr_tpu_torch.ops.lstm_kernel import (
@@ -323,20 +323,6 @@ def say(phase, **fields):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def time_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up
-    call, with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -368,14 +354,13 @@ def cluster_plan(prefix, gates):
     _, r, g = gates.shape
     # kernel 4 reads fp32 activations whatever the gates: it has no gate type
     code = None if prefix == "bilstm_train_bwd" else gate_dtype_code(prefix, gates)
-    lib = _build.load(f"{prefix}.cu")
-    plan = launch_plan(lib, prefix, r, g // 4, code,
+    plan = launch_plan(prefix, r, g // 4, code,
                        plan=backward_plan if prefix == "bilstm_train_bwd" else recurrence_plan)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    smem = library_smem_bytes(lib, prefix, g // 4)
+    smem = library_smem_bytes(prefix, g // 4)
     check(smem == plan.smem_bytes,
           f"{prefix}: the plan's {plan.smem_bytes} bytes of shared memory, the build's {smem}")
-    return dict(cluster=plan.cluster, active_clusters=active_clusters(lib, prefix, g // 4, code),
+    return dict(cluster=plan.cluster, active_clusters=active_clusters(prefix, g // 4, code),
                 clusters=plan.clusters, idle_sms=sms - plan.cluster * plan.clusters,
                 smem_bytes=smem, rows_per_tile=plan.rows_per_tile,
                 items_per_cluster=plan.tiles_per_cluster)
@@ -437,9 +422,8 @@ def phase_build():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
     # the projection's shared memory is dynamic, which ptxas does not report
-    smem = _build.load("input_proj.cu").input_proj_smem_bytes
-    smem.argtypes, smem.restype = [], ctypes.c_int
-    print(f"  input_proj.cu: input_proj_kernel dynamic shared memory {smem()} bytes", flush=True)
+    print(f"  input_proj.cu: input_proj_kernel dynamic shared memory {proj_kernel.library_smem_bytes()} bytes",
+          flush=True)
 
 
 def flagship_inputs(batch, gen):
@@ -600,8 +584,6 @@ def phase_gat(model, app, mot, q, qlen):
     return full, serving
 
 
-KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one, input_proj_both,
-           tanh_to_bf16)
 # launches per fp32 forward and per bf16 forward (kernels 1-6, then the
 # tanh pass, which kernel 6 runs on fp32 x); a GCN model never runs kernel 2
 EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1)}
@@ -611,13 +593,8 @@ TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0), "bfloat16": (0, 0, 3, 3, 0, 
 
 
 def reset_counts():
-    for k in KERNELS:
+    for k in COUNTED_KERNELS:
         k.launches = 0
-
-
-def counts():
-    """Launches of kernels 1-6 and of the tanh pass."""
-    return tuple(k.launches for k in KERNELS)
 
 
 def flops_per_qa(model):
@@ -639,7 +616,7 @@ def phase_eval(model, app, mot, q, qlen, tag="eval", want=EVAL_LAUNCHES["float32
     reset_counts()
     out = model(app, mot, q, qlen)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     n_lstm, n_gat = launches[:2]
     check(launches == want, f"one {tag} forward launched {launches} kernels, want {want}")
     model.use_kernels = False
@@ -755,7 +732,7 @@ def serve_through_engine(tag, predict, reqs, direct, compute_dtype, per_batch=No
             t.join(timeout=300)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = counts()
+        launches = launch_counts()
         stats = eng.stats()
     check(not errors, f"{tag} errors: {errors[:3]}")
     check(all(r is not None for r in results), f"{tag}: a request got no answer")
@@ -1093,7 +1070,7 @@ def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
     reset_counts()
     metrics = forward_backward(state, batch, alpha=ALPHA, beta=BETA)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     check(launches == TRAIN_LAUNCHES[compute_dtype],
           f"one {tag} step launched {launches} kernels, want {TRAIN_LAUNCHES[compute_dtype]}")
     loss_k, gn_k = metrics["loss"].item(), module_grad_norms(model)
@@ -1103,10 +1080,11 @@ def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
         model.use_kernels = False
     metrics = forward_backward(state, batch, alpha=ALPHA, beta=BETA)
     torch.cuda.synchronize()
-    other = counts()
+    other = launch_counts()
     loss_p, gn_p = metrics["loss"].item(), module_grad_norms(model)
     model.use_kernels, model.compute_dtype = True, compute_dtype
-    want_other = tuple(a + b for a, b in zip(launches, TRAIN_LAUNCHES["float32"] if bf16 else (0,) * len(KERNELS)))
+    want_other = tuple(a + b for a, b in zip(launches, TRAIN_LAUNCHES["float32"] if bf16
+                                             else (0,) * len(COUNTED_KERNELS)))
     check(other == want_other, f"the reference path launched {other} kernels after {launches}, want {want_other}")
     check(np.isfinite(loss_k) and np.isfinite(loss_p), f"non-finite loss {loss_k} / {loss_p}")
     rel_loss = abs(loss_k - loss_p) / max(abs(loss_p), 1e-9)
@@ -1134,7 +1112,7 @@ def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
     losses = [train_step(state, batch, alpha=ALPHA, beta=BETA)["loss"] for _ in range(TIMED_STEPS)]
     end.record()
     end.synchronize()
-    launches = counts()
+    launches = launch_counts()
     ms = start.elapsed_time(end) / TIMED_STEPS
     losses = [v.item() for v in losses]
     check(all(np.isfinite(losses)), f"non-finite train losses {losses}")
@@ -1253,7 +1231,7 @@ def phase_proj():
     reset_counts()
     v2()
     torch.cuda.synchronize()
-    n5, n_tanh = counts()[4], counts()[6]
+    n5, n_tanh = launch_counts()[4], launch_counts()[6]
     check((n5, n_tanh) == (2, 2), f"the probe's v2 launched kernel 5 {n5} and the tanh pass {n_tanh} times, want 2")
     torch.cuda.empty_cache()
     return [c[0] for c in cases], [c[1] for c in cases], [c[2] for c in cases], n5
@@ -1304,7 +1282,7 @@ def phase_eval_bf16(model, app, mot, q, qlen, fp32_logits, tag="eval bf16", want
     reset_counts()
     out = model(app, mot, q, qlen)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     check(launches == want, f"one {tag} forward launched {launches} kernels, want {want}")
     logits = out.logits
     check(logits.dtype == torch.float32 and tuple(logits.shape) == (BATCH, FLAGSHIP["num_answers"]),
@@ -1437,7 +1415,7 @@ def cli_run_validate(cfg, stores, **tpu):
     with contextlib.redirect_stdout(io.StringIO()) as out:
         accs = tvalidate.run(cfg, 1, feature_stores=stores)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     check("Test Accuracy" in out.getvalue(), "validate.run printed no Test Accuracy")
     preds = json.load(open(os.path.join(cfg.dataset.save_dir, cfg.exp_name, "preds", "test_preds.json")))
     check(len(preds) == CLI_SPLITS["test"], f"test_preds.json holds {len(preds)} entries")
@@ -1563,7 +1541,7 @@ def phase_cli(root, model_ms):
         best_val, state = ttrain.train(cfg, feature_stores=stores)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = counts()
+    launches = launch_counts()
     want = tuple(a * n_steps + b * n_val for a, b in zip(TRAIN_LAUNCHES["float32"], EVAL_LAUNCHES["float32"]))
     check(launches == want, f"train() ran {n_steps} steps and {n_val} validation forwards with launches "
                             f"{launches}, want {want}")
@@ -1595,7 +1573,7 @@ def phase_cli(root, model_ms):
     want = tuple(n * n_fwd for n in EVAL_LAUNCHES["float32"])
     check(val_launches == want, f"validate.run launched {val_launches}, want {want}")
     plain_accs, plain_preds, _, plain_launches = cli_run_validate(raw, stores, use_pallas=False)
-    check(plain_launches == (0,) * len(KERNELS), f"the plain path launched {plain_launches}")
+    check(plain_launches == (0,) * len(COUNTED_KERNELS), f"the plain path launched {plain_launches}")
     agree = cli_agreement("cli kernel vs plain", accs, preds, plain_accs, plain_preds, first)
     check(agree >= MIN_ARGMAX_AGREEMENT, f"cli: argmax agreement {agree} < {MIN_ARGMAX_AGREEMENT}")
 
@@ -1613,8 +1591,8 @@ def phase_cli(root, model_ms):
     say("cli", seconds=f"{time.perf_counter() - t_phase:.1f}", train_s=f"{train_s:.2f}", epochs=CLI_EPOCHS, steps=n_steps, best_val=f"{best_val:.4f}",
         test_acc=f"{accs[0]:.4f}", plain_test_acc=f"{plain_accs[0]:.4f}", argmax_agreement=f"{agree:.4f}",
         restore_bit_exact=True, restored_step_rel_loss=f"{rel_loss:.2e}", restored_step_gnorm_rel=f"{rel_gn:.2e}",
-        launches_train=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, launches) if n),
-        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, val_launches) if n))
+        launches_train=",".join(f"{k.__name__}:{n}" for k, n in zip(COUNTED_KERNELS, launches) if n),
+        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(COUNTED_KERNELS, val_launches) if n))
     say("cli rates", epoch_s=f"{epoch_s:.3f}", epoch_qa_per_s=f"{CLI_SPLITS['train'] / epoch_s:.1f}",
         step_ms_through_loader=f"{epoch_s / (n_steps // CLI_EPOCHS) * 1e3:.3f}",
         epoch_s_pregathered=f"{pregathered_s:.3f}",
@@ -1778,7 +1756,7 @@ def phase_cli_bf16(raw, all_stores, accs, preds, first, model_ms):
     say("cli bf16", seconds=f"{time.perf_counter() - t_phase:.1f}", test_acc=f"{b_accs[0]:.4f}", fp32_test_acc=f"{accs[0]:.4f}", argmax_agreement=f"{agree:.4f}",
         flips=len(flips), logits_max_abs_err=f"{err:.3e}", rel_to_max_logit=f"{err / scale:.3e}",
         tol=f"{TOL_BF16_LOGITS}*max|logit|",
-        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, launches) if n),
+        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(COUNTED_KERNELS, launches) if n),
         val_qa_per_s=f"{val_qa_s:.1f}", eval_bf16_qa_per_s_model_alone=f"{BATCH / model_ms['eval bf16'] * 1e3:.1f}",
         gather_ms_per_batch=f"{gather_app + gather_mot:.3f}", gather_app_ms=f"{gather_app:.3f}",
         h2d_ms_per_batch=f"{copy_app + copy_mot:.3f}", batch_mb=f"{(bytes_app + bytes_mot) / 1e6:.1f}",
@@ -1852,7 +1830,7 @@ def http_serve(tag, engine, answer_fn, questions):
         wall = time.perf_counter() - t0
         check(client.returncode == 0, f"{tag}: the client exited {client.returncode}: {client.stderr[-2000:]}")
         replies = [tuple(r) for r in json.loads(client.stdout)]
-        launches = counts()
+        launches = launch_counts()
         stats = engine.stats()
         batches = stats["batches"] - before
         bad = [r for r in replies if r[0] != 200]
@@ -2015,7 +1993,7 @@ def phase_batch_gats(batch):
         reset_counts()
         loss = forward_backward(state, batch, alpha=ALPHA, beta=BETA)["loss"].item()
         torch.cuda.synchronize()
-        runs[stacked] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()}, counts())
+        runs[stacked] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()}, launch_counts())
         runs[stacked] += (time_ms(lambda: forward_backward(state, batch, alpha=ALPHA, beta=BETA), 3),)
     (loss_a, grads_a, launch_a, ms_a), (loss_b, grads_b, launch_b, ms_b) = runs[False], runs[True]
     check(launch_a == launch_b == TRAIN_LAUNCHES["float32"], f"batch_gats train launches {launch_a} / {launch_b}")
@@ -2047,7 +2025,7 @@ def phase_batch_gats(batch):
         reset_counts()
         model(app, mot, q, qlen)
         torch.cuda.synchronize()
-        launches = counts()
+        launches = launch_counts()
     check(launches == EVAL_LAUNCHES["float32"], f"the batch_gats kernel eval launched {launches}")
     say("batch_gats", after_steps=WARMUP_STEPS, rel_loss=f"{rel_loss:.2e}", tol_loss=TOL_TRAIN_LOSS,
         worst_grad=worst, worst_grad_rel=f"{errs[worst]:.2e}", tol_grad=TOL_TRAIN_GNORM,
@@ -2089,7 +2067,7 @@ def phase_gcn_cli(root, stores):
         best_val, state = ttrain.train(cfg, feature_stores=stores)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_launches = counts()
+    train_launches = launch_counts()
     want = tuple(a * n_steps + b * n_val for a, b in zip(TRAIN_LAUNCHES["float32"], GCN_EVAL_LAUNCHES["float32"]))
     check(train_launches == want, f"gcn train() launched {train_launches}, want {want}")
     check(type(state.model.visual_input_unit.acGCN[0]).__name__ == "PunishGCN", "gcn cli trained no GCN")
@@ -2127,8 +2105,8 @@ def phase_gcn_cli(root, stores):
         graph_ops=",".join(f"{k.split('.')[1]}:{n}" for k, n in sorted(kernel_ops.items())),
         requests=stats["requests"], batches=stats["batches"], p50_ms=f"{stats['latency_ms_p50']:.2f}",
         p99_ms=f"{stats['latency_ms_p99']:.2f}", qa_per_s=f"{SERVE_REQUESTS / wall:.1f}",
-        launches_train=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, train_launches) if n),
-        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, val_launches) if n),
+        launches_train=",".join(f"{k.__name__}:{n}" for k, n in zip(COUNTED_KERNELS, train_launches) if n),
+        launches_validate=",".join(f"{k.__name__}:{n}" for k, n in zip(COUNTED_KERNELS, val_launches) if n),
         launches_serve=fmt_launches(serve_launches))
     del model, predict
     torch.cuda.empty_cache()
@@ -2174,7 +2152,7 @@ def rel(a, b):
 
 def fmt_counts(launches):
     """The kernels a run launched, by name, with their counts."""
-    return ",".join(f"{k.__name__}:{n}" for k, n in zip(KERNELS, launches) if n) or "none"
+    return ",".join(f"{k.__name__}:{n}" for k, n in zip(COUNTED_KERNELS, launches) if n) or "none"
 
 
 def nccl_rank(rank, world, init_file, out_file):
@@ -2333,7 +2311,7 @@ def phase_ddp():
 
     for tag, rs in (("tp zero", tpz), ("tp", tp)):
         for r in rs:
-            check(r["launches_train"] == (0,) * len(KERNELS), f"{tag}: launched {r['launches_train']}")
+            check(r["launches_train"] == (0,) * len(COUNTED_KERNELS), f"{tag}: launched {r['launches_train']}")
             check(not r["use_kernels"] and any("forces the plain (non-kernel) execution path" in w
                                                 for w in r["warnings"]), f"{tag}: no kernel warning: {r['warnings']}")
             check(r["tp_sharded_leaf_count"] > 0, f"{tag}: no leaf sharded over the model axis")
@@ -2388,7 +2366,7 @@ def phase_ddp_nccl(root, raw, stores, accs, preds, first, cli_train):
         with contextlib.redirect_stdout(io.StringIO()):
             best_val, state = ttrain.train(cfg, feature_stores=stores)
         torch.cuda.synchronize()
-        launches = counts()
+        launches = launch_counts()
         check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
               "the train CLI brought up no one-rank NCCL group")
         check(state.placement is not None and state.placement.data.size == 1, "the state was not placed")
@@ -2553,7 +2531,7 @@ def phase_predict(raw, extractors):
     logits = tpredict.predict_frames(videos, questions, **kw)
     torch.cuda.synchronize()
     whole_ms = (time.perf_counter() - t0) * 1e3
-    launches = counts()
+    launches = launch_counts()
     check(launches == EVAL_LAUNCHES["float32"], f"predict launched {launches}, want {EVAL_LAUNCHES['float32']} "
                                                 f"(one DualVGR forward)")
     check(tuple(logits.shape) == (PREDICT_VIDEOS, FLAGSHIP["num_answers"]) and torch.isfinite(logits).all().item(),

@@ -6,7 +6,7 @@
 Needs one CUDA device and ``nvcc``. Without ``--baseline`` it builds the
 committed source, a build variant (the dh product's loop not unrolled; the
 source unrolls it by 2) and timing-only cuts of it, all ``nvcc``s at once,
-as ``ops/_build.py`` builds the source: the dh product cut, the
+through ``ops/_build.py::build_variants``: the dh product cut, the
 reduce-scatter cut (each CTA stores its partials into its own receive
 buffer, so the product stays live, and nothing is waited for) and the
 cell's transcendental cut (the tanh of c_t gone, the rest of the cell
@@ -22,33 +22,31 @@ reversed) in one process on one card, and each cut is printed beside what
 it leaves of the committed time.
 
 With ``--baseline DIR`` (a checkout of an earlier commit of the repo) it
-runs this script's measurement in DIR's package and in this one, in turns
-(baseline, this, this, baseline), one process each on the same card: kernel
-4 on the tree's own kernel 3 outputs (the activations and c_{t-1}; a tree
-whose kernel 4 recomputes the gates takes the gates and both residuals
-instead, and cannot be the baseline), and kernels 1 and 3 beside it, at the same shapes and
-gates (fp32, and bf16 gates at the appearance shape), and the flagship eval
-forward at batch 256 in fp32 and bf16. It prints each time per run and this
-tree's mean against the baseline's. fp32, TF32 off.
+runs the measurement of DIR's copy of this script in DIR's package and this
+one's here, in turns (baseline, this, this, baseline), one process each on
+the same card (``bench/timing.py::against_baseline``): kernel 4 on the
+tree's own kernel 3 outputs (the activations and c_{t-1}; a tree whose
+kernel 4 recomputes the gates takes the gates and both residuals instead,
+and cannot be the baseline), and kernels 1 and 3 beside it, at the same
+shapes and gates (fp32, and bf16 gates at the appearance shape), and the
+flagship eval forward at batch 256 in fp32 and bf16. It prints each time
+per run and this tree's mean against the baseline's. fp32, TF32 off.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
 import subprocess
-import sys
 import tempfile
 from pathlib import Path
 
 import torch
 
+from dualvgr_tpu_torch.bench.timing import against_baseline, time_ms
 from dualvgr_tpu_torch.ops import _build
 
 SOURCE = "bilstm_train_bwd.cu"
-ROOT = Path(__file__).resolve().parents[2]
 DH_LOOP = "for (int c = 0; c < 4 * units; c += 4) {"
 DST = "dst[j] = in_rank(smem_u32(my_slot + k % units), k / units);"
 WAITS = ("mbar_wait(smem_u32(&bars[0]), fullpar);", "mbar_wait(smem_u32(&bars[1]), freepar);",
@@ -79,38 +77,16 @@ def variant_source(text: str, cuts) -> str:
     return text
 
 
-def build_variants(workdir: Path) -> dict[str, ctypes.CDLL]:
+def build_variants(workdir: Path) -> dict:
     """Compile every variant, all ``nvcc``s at once, against the committed
     headers of ``csrc/``."""
     text = (_build.CSRC / SOURCE).read_text()
-    procs = {}
-    for name, cuts in VARIANTS.items():
-        src = workdir / f"{name}.cu"
-        src.write_text(variant_source(text, cuts))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(workdir / f"{name}.so"),
-               str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} exited {proc.returncode}:\n{out}")
+    built = _build.build_variants(SOURCE, {name: {SOURCE: variant_source(text, cuts)}
+                                           for name, cuts in VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
         regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line or "spill" in line]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
-        libs[name] = ctypes.CDLL(str(workdir / f"{name}.so"))
-    return libs
-
-
-def time_ms(fn, iters=10):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def backward_args(fwd, fargs, dfinal, douts):
@@ -125,9 +101,7 @@ def cases(gen, forward):
     """(name, forward args, with_outputs, backward args) at the three
     shapes of the flagship train step, then the appearance shape with bf16
     gates, kernel 4's arguments from ``forward`` (kernel 3 or its plain
-    version). Uses only what the trees whose kernel 3 returns the
-    activations all have, so that ``--baseline`` can run it in an earlier
-    one."""
+    version)."""
     dev = gen.device
     w = [torch.randn((H, G), generator=gen, device=dev) * 0.05 for _ in range(2)]
     lens = torch.randint(4, QLEN + 1, (256,), generator=gen, device=dev, dtype=torch.int32)
@@ -158,9 +132,9 @@ def measure():
     _build.build_all()
     times = {}
     for name, fargs, outs, bargs in cases(torch.Generator(device="cuda").manual_seed(0), bilstm_train_fwd):
-        times[f"kernel 1 {name}"] = time_ms(lambda: bilstm_recurrence(*fargs, with_outputs=outs))
-        times[f"kernel 3 {name}"] = time_ms(lambda: bilstm_train_fwd(*fargs, with_outputs=outs))
-        times[f"kernel 4 {name}"] = time_ms(lambda: bilstm_train_bwd(*bargs))
+        times[f"kernel 1 {name}"] = time_ms(lambda: bilstm_recurrence(*fargs, with_outputs=outs), 10)
+        times[f"kernel 3 {name}"] = time_ms(lambda: bilstm_train_fwd(*fargs, with_outputs=outs), 10)
+        times[f"kernel 4 {name}"] = time_ms(lambda: bilstm_train_bwd(*bargs), 10)
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = build_model(seed=0, **FLAGSHIP)
     app = torch.randn((BATCH, CLIPS, FRAMES, FLAGSHIP["vision_dim"]), generator=gen, device="cuda")
@@ -175,29 +149,6 @@ def measure():
     print("RESULT " + json.dumps(times), flush=True)
 
 
-def run_in(tree: Path) -> dict:
-    """``measure`` with ``tree``'s package, in a process of its own."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure"], cwd=tree, env=env,
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"measure in {tree} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT "))
-    return json.loads(line[len("RESULT "):])
-
-
-def against_baseline(baseline: Path):
-    runs = {"baseline": [], "this": []}
-    for who in ("baseline", "this", "this", "baseline"):
-        runs[who].append(run_in(baseline if who == "baseline" else ROOT))
-    for key in runs["this"][0]:
-        base = [r[key] for r in runs["baseline"]]
-        this = [r[key] for r in runs["this"]]
-        change = sum(this) / sum(base) - 1.0
-        print(f"[{key}] baseline " + " / ".join(f"{m:.4f}" for m in base) + " ms; this "
-              + " / ".join(f"{m:.4f}" for m in this) + f" ms; change {100 * change:+.2f}%", flush=True)
-
-
 @torch.no_grad()
 def cuts():
     from dualvgr_tpu_torch.ops.lstm_train_kernel import (
@@ -205,17 +156,14 @@ def cuts():
     )
 
     _build.BUILD_DIR.mkdir(exist_ok=True)
-    try:
-        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            libs = build_variants(Path(tmp))
-            order = list(VARIANTS) + list(VARIANTS)[::-1]
-            for shape, _, _, args in cases(torch.Generator(device="cuda").manual_seed(0),
-                                           bilstm_train_fwd_reference):
-                want = bilstm_train_bwd_reference(*args)
-                times = {}
-                for name in order:
-                    # the wrapper loads its library through _build; hand it the variant's
-                    _build._libs[SOURCE] = libs[name]
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build_variants(Path(tmp))
+        order = list(VARIANTS) + list(VARIANTS)[::-1]
+        for shape, _, _, args in cases(torch.Generator(device="cuda").manual_seed(0), bilstm_train_fwd_reference):
+            want = bilstm_train_bwd_reference(*args)
+            times = {}
+            for name in order:
+                with _build.using(SOURCE, libs[name]):
                     got = bilstm_train_bwd(*args)
                     torch.cuda.synchronize()
                     if not name.startswith("no_"):
@@ -224,18 +172,16 @@ def cuts():
                         if err > tol:
                             raise RuntimeError(f"{name} at {shape}: max abs err {err:.3e} > {tol:.3e}")
                     del got
-                    times.setdefault(name, []).append(time_ms(lambda: bilstm_train_bwd(*args)))
-                base = sum(times["committed"]) / 2
-                for name, ms in times.items():
-                    note = ""
-                    if name.startswith("no_"):
-                        left = sum(ms) / 2
-                        note = (f" (timing only: leaves {left:.4f} ms of the committed {base:.4f}; the cut "
-                                f"part {base - left:.4f} ms, {100 * (base - left) / base:.1f}%)")
-                    print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
-                del want
-    finally:
-        _build._libs.pop(SOURCE, None)
+                    times.setdefault(name, []).append(time_ms(lambda: bilstm_train_bwd(*args), 10))
+            base = sum(times["committed"]) / 2
+            for name, ms in times.items():
+                note = ""
+                if name.startswith("no_"):
+                    left = sum(ms) / 2
+                    note = (f" (timing only: leaves {left:.4f} ms of the committed {base:.4f}; the cut "
+                            f"part {base - left:.4f} ms, {100 * (base - left) / base:.1f}%)")
+                print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
+            del want
 
 
 def main():
@@ -253,7 +199,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     if args.baseline:
-        against_baseline(args.baseline.resolve())
+        against_baseline("dualvgr_tpu_torch.bench.bwd_kernel_ab", args.baseline.resolve())
     else:
         cuts()
 

@@ -35,25 +35,13 @@ import json
 import torch
 import torch.nn.functional as F
 
+from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.models.backbones.resnext3d import blockdiag_weight
 from dualvgr_tpu_torch.preprocess.features import build_appearance_extractor, build_motion_extractor
 from dualvgr_tpu_torch.utils.flops import resnet101_flops, resnext101_3d_flops
 
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 FRAMES_PER_VIDEO, CLIPS_PER_VIDEO = 256, 16  # 16 clips x 16 frames
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean device ms of ``fn()`` over ``iters`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def rates(app_ms: float, mot_ms: float, n_frames: int, n_clips: int, compute_dtype: str) -> dict:

@@ -5,8 +5,8 @@
 
 Needs one CUDA device and ``nvcc``. Without ``--baseline`` it builds the
 committed source, two build variants (3-deep rings; 16-row k-chunks) and
-timing-only cuts of it, all ``nvcc``s at once, as ``ops/_build.py``
-builds the source: the four products cut (their chunk loop runs no
+timing-only cuts of it, all ``nvcc``s at once, through
+``ops/_build.py::build_variants``: the four products cut (their chunk loop runs no
 chunk, so Wh is the bias and the rest stays live), the products' FMAs
 cut (the chunks still stream through shared memory), the attention cut
 (no logits, softmax or aggregation: common and spec are Wh) and the
@@ -22,30 +22,28 @@ process on one card, and each cut is printed beside what it leaves of the
 committed time.
 
 With ``--baseline DIR`` (a checkout of an earlier commit of the repo) it
-runs this script's measurement in DIR's package and in this one, in turns
-(baseline, this, this, baseline), one process each on the same card:
-kernel 2 at the same shapes and inputs, and the flagship eval forward at
-batch 256 in fp32 and bf16. It prints each time per run and this tree's
-mean against the baseline's. fp32, TF32 off.
+runs the measurement of DIR's copy of this script in DIR's package and this
+one's here, in turns (baseline, this, this, baseline), one process each on
+the same card (``bench/timing.py::against_baseline``): kernel 2 at the
+same shapes and inputs, and the flagship eval forward at batch 256 in fp32
+and bf16. It prints each time per run and this tree's mean against the
+baseline's. fp32, TF32 off.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
 import subprocess
-import sys
 import tempfile
 from pathlib import Path
 
 import torch
 
+from dualvgr_tpu_torch.bench.timing import against_baseline, time_ms
 from dualvgr_tpu_torch.ops import _build
 
 SOURCE = "gat_cycle.cu"
-ROOT = Path(__file__).resolve().parents[2]
 # name -> the replacements that make it; the cuts ("no_*") are timing only
 VARIANTS = {
     "committed": (),
@@ -71,43 +69,19 @@ def variant_source(text: str, cuts) -> str:
     return text
 
 
-def build_variants(workdir: Path) -> dict[str, ctypes.CDLL]:
+def build_variants(workdir: Path) -> dict:
     """Compile every variant, all ``nvcc``s at once."""
     text = (_build.CSRC / SOURCE).read_text()
-    procs = {}
-    for name, cuts in VARIANTS.items():
-        src = workdir / f"{name}.cu"
-        src.write_text(variant_source(text, cuts))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(workdir / f"{name}.so"),
-               str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} exited {proc.returncode}:\n{out}")
+    built = _build.build_variants(SOURCE, {name: {SOURCE: variant_source(text, cuts)}
+                                           for name, cuts in VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
         regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line or "spill" in line]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
-        libs[name] = ctypes.CDLL(str(workdir / f"{name}.so"))
-    return libs
-
-
-def time_ms(fn, iters=20):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def cases(gen):
-    """(name, h, scores, weights) at each shape of SHAPES. Uses only what
-    every tree with kernel 2 has, so that ``--baseline`` can run it in an
-    earlier one."""
+    """(name, h, scores, weights) at each shape of SHAPES."""
     dev = gen.device
     hd = D // HEADS
 
@@ -134,7 +108,7 @@ def measure():
     _build.build_all()
     times = {}
     for name, h, scores, args in cases(torch.Generator(device="cuda").manual_seed(0)):
-        times[f"kernel 2 {name}"] = time_ms(lambda: gat_cycle(h, scores, *args))
+        times[f"kernel 2 {name}"] = time_ms(lambda: gat_cycle(h, scores, *args), 20)
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = build_model(seed=0, **FLAGSHIP)
     app = torch.randn((BATCH, CLIPS, FRAMES, FLAGSHIP["vision_dim"]), generator=gen, device="cuda")
@@ -149,50 +123,25 @@ def measure():
     print("RESULT " + json.dumps(times), flush=True)
 
 
-def run_in(tree: Path) -> dict:
-    """``measure`` with ``tree``'s package, in a process of its own."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure"], cwd=tree, env=env,
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"measure in {tree} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT "))
-    return json.loads(line[len("RESULT "):])
-
-
-def against_baseline(baseline: Path):
-    runs = {"baseline": [], "this": []}
-    for who in ("baseline", "this", "this", "baseline"):
-        runs[who].append(run_in(baseline if who == "baseline" else ROOT))
-    for key in runs["this"][0]:
-        base = [r[key] for r in runs["baseline"]]
-        this = [r[key] for r in runs["this"]]
-        change = sum(this) / sum(base) - 1.0
-        print(f"[{key}] baseline " + " / ".join(f"{m:.4f}" for m in base) + " ms; this "
-              + " / ".join(f"{m:.4f}" for m in this) + f" ms; change {100 * change:+.2f}%", flush=True)
-
-
 @torch.no_grad()
 def cuts():
     from dualvgr_tpu_torch.ops import gat_kernel
     from dualvgr_tpu_torch.ops.gat_kernel import card_plan, gat_cycle, gat_cycle_reference
 
     _build.BUILD_DIR.mkdir(exist_ok=True)
-    try:
-        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            libs = build_variants(Path(tmp))
-            order = list(VARIANTS) + list(VARIANTS)[::-1]
-            for shape, h, scores, args in cases(torch.Generator(device="cuda").manual_seed(0)):
-                plan = card_plan(*h.shape, HEADS)
-                print(f"[{shape}] plan cluster={plan.cluster} clusters={plan.clusters} "
-                      f"videos_per_cluster={plan.videos_per_cluster} ctas={plan.ctas} waves={plan.waves:.2f} "
-                      f"tile_rows={plan.tile_rows} k_split={plan.k_split} col_passes={plan.col_passes} "
-                      f"smem_bytes={plan.smem_bytes}", flush=True)
-                want = gat_cycle_reference(h, scores, *args)
-                times = {}
-                for name in order:
-                    # the wrapper loads its library through _build; hand it the variant's
-                    _build._libs[SOURCE] = libs[name]
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build_variants(Path(tmp))
+        order = list(VARIANTS) + list(VARIANTS)[::-1]
+        for shape, h, scores, args in cases(torch.Generator(device="cuda").manual_seed(0)):
+            plan = card_plan(*h.shape, HEADS)
+            print(f"[{shape}] plan cluster={plan.cluster} clusters={plan.clusters} "
+                  f"videos_per_cluster={plan.videos_per_cluster} ctas={plan.ctas} waves={plan.waves:.2f} "
+                  f"tile_rows={plan.tile_rows} k_split={plan.k_split} col_passes={plan.col_passes} "
+                  f"smem_bytes={plan.smem_bytes}", flush=True)
+            want = gat_cycle_reference(h, scores, *args)
+            times = {}
+            for name in order:
+                with _build.using(SOURCE, libs[name]):
                     if name != "committed" and gat_kernel.library_smem_bytes(*h.shape, HEADS, plan) < 0:
                         print(f"[{shape}] {name}: refuses the plan (its shared memory is over the limit)", flush=True)
                         continue
@@ -204,18 +153,16 @@ def cuts():
                         if err > tol:
                             raise RuntimeError(f"{name} at {shape}: max abs err {err:.3e} > {tol:.3e}")
                     del got
-                    times.setdefault(name, []).append(time_ms(lambda: gat_cycle(h, scores, *args)))
-                base = sum(times["committed"]) / 2
-                for name, ms in times.items():
-                    note = ""
-                    if name.startswith("no_"):
-                        left = sum(ms) / 2
-                        note = (f" (timing only: leaves {left:.4f} ms of the committed {base:.4f}; the cut "
-                                f"part {base - left:.4f} ms, {100 * (base - left) / base:.1f}%)")
-                    print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
-                del want
-    finally:
-        _build._libs.pop(SOURCE, None)
+                    times.setdefault(name, []).append(time_ms(lambda: gat_cycle(h, scores, *args), 20))
+            base = sum(times["committed"]) / 2
+            for name, ms in times.items():
+                note = ""
+                if name.startswith("no_"):
+                    left = sum(ms) / 2
+                    note = (f" (timing only: leaves {left:.4f} ms of the committed {base:.4f}; the cut "
+                            f"part {base - left:.4f} ms, {100 * (base - left) / base:.1f}%)")
+                print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
+            del want
 
 
 def main():
@@ -233,7 +180,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     if args.baseline:
-        against_baseline(args.baseline.resolve())
+        against_baseline("dualvgr_tpu_torch.bench.gat_kernel_ab", args.baseline.resolve())
     else:
         cuts()
 

@@ -7,7 +7,7 @@ with another N-tile width (``kBN``: 256, the committed one, or 128, with
 wgmma n128) or another depth of the TMA ring (``kStages``), or, for timing
 only, with the epilogue's loops cut to zero steps (the products without
 their bias, rounding, staging and stores: the epilogue's share). Every variant
-is compiled as ``ops/_build.py`` compiles the source, run through
+is compiled by ``ops/_build.py::build_variants``, run through
 ``input_proj_both`` on bf16 x (the product alone, no tanh pass) at the
 projection's two shapes, R = 4096 (batch 256) and R = 512 (batch 32), with
 the probe's inputs (``bench/proj_probe.py``), checked against the plain
@@ -23,7 +23,6 @@ clock, 989 TFLOP/s at 1,830 MHz.
 
 from __future__ import annotations
 
-import ctypes
 import statistics
 import subprocess
 import tempfile
@@ -33,6 +32,7 @@ from pathlib import Path
 import torch
 
 from dualvgr_tpu_torch.bench import proj_probe
+from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_both_reference
 
@@ -62,24 +62,15 @@ def variant_source(text: str, bn: int, stages: int, cut: bool) -> str:
     return text
 
 
-def build_variants(workdir: Path) -> dict[str, ctypes.CDLL]:
+def build_variants(workdir: Path) -> dict:
     """Compile every variant, all ``nvcc``s at once."""
     text = (_build.CSRC / SOURCE).read_text()
-    procs = {}
-    for name, (bn, stages, cut) in VARIANTS.items():
-        src = workdir / f"{name}.cu"
-        src.write_text(variant_source(text, bn, stages, cut))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(workdir / f"{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} exited {proc.returncode}:\n{out}")
+    built = _build.build_variants(SOURCE, {name: {SOURCE: variant_source(text, *variant)}
+                                           for name, variant in VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
         regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
-        libs[name] = ctypes.CDLL(str(workdir / f"{name}.so"))
-    return libs
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def clocks_under_load(fn, seconds=1.0):
@@ -122,27 +113,24 @@ def main():
             want = input_proj_both_reference(*args, fuse_tanh=False)
             times = {}
             for name in order:
-                # the wrapper loads its library through _build; hand it the variant's
-                _build._libs[SOURCE] = libs[name]
-                got = input_proj_both(*args, fuse_tanh=False)
-                torch.cuda.synchronize()
-                for a, b in zip(got, want):
-                    steps, _, ok = proj_probe.compare(a, b)
-                    if not ok and not VARIANTS[name][2]:
-                        raise RuntimeError(f"{name} at R={rows}: {steps:.2f} bf16 steps from the plain version")
-                del got
-                times.setdefault(name, []).append(
-                    proj_probe.time_ms(lambda: input_proj_both(*args, fuse_tanh=False), 20))
+                with _build.using(SOURCE, libs[name]):
+                    got = input_proj_both(*args, fuse_tanh=False)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        steps, _, ok = proj_probe.compare(a, b)
+                        if not ok and not VARIANTS[name][2]:
+                            raise RuntimeError(f"{name} at R={rows}: {steps:.2f} bf16 steps from the plain version")
+                    del got
+                    times.setdefault(name, []).append(time_ms(lambda: input_proj_both(*args, fuse_tanh=False), 20))
             flops = 2 * x16.numel() * 2 * w_f.shape[0]
-            _build._libs[SOURCE] = libs["committed"]
-            mhz, watts, _ = clocks_under_load(lambda: input_proj_both(*args, fuse_tanh=False))
+            with _build.using(SOURCE, libs["committed"]):
+                mhz, watts, _ = clocks_under_load(lambda: input_proj_both(*args, fuse_tanh=False))
             print(f"[R{rows}] committed under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
             for name, ms in times.items():
                 note = " (timing only: epilogue cut)" if VARIANTS[name][2] else ""
                 print(f"[R{rows}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
                       + f" ms, {flops / min(ms) / 1e9:.1f} TFLOP/s{note}", flush=True)
             del args, want, x16
-        _build._libs.pop(SOURCE, None)
 
 
 if __name__ == "__main__":

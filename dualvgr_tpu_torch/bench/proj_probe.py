@@ -34,6 +34,7 @@ import json
 
 import torch
 
+from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.ops.precision import mm_f32
 from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_both_reference, input_proj_one
 
@@ -96,18 +97,6 @@ def compare(got, want, atol=1e-5):
     diff = (got.float() - want.float()).abs()
     steps = ((diff - atol).clamp(min=0) / bf16_step(want)).max().item()
     return steps, (diff > 0).float().mean().item(), steps <= 1.0
-
-
-def time_ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 @torch.no_grad()

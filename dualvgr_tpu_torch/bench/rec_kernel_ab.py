@@ -10,7 +10,7 @@ a 128-thread CTA instead of 8 of 256, or its k loop not unrolled (the
 committed source unrolls it by 2), or, for timing only, with a part of
 the step cut: the h exchange (no distributed shared memory copies, and no
 bytes waited for), the product, or the cell update's arithmetic. Every variant
-is compiled as ``ops/_build.py`` compiles the source, run through the
+is compiled by ``ops/_build.py::build_variants``, run through the
 port's wrapper at the three shapes of the flagship forward on seeded
 random gates (the appearance encoder: T 16, R 4096, unmasked, final only;
 the question encoders: T 24, R 256, lengths 4..24, with outputs and final
@@ -26,9 +26,6 @@ the appearance shape back to back for about a second. fp32, TF32 off.
 
 from __future__ import annotations
 
-import ctypes
-import shutil
-import subprocess
 import tempfile
 from pathlib import Path
 
@@ -36,6 +33,7 @@ import torch
 
 from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
 from dualvgr_tpu_torch.bench.proj_probe import compare
+from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.ops import _build, lstm_kernel
 from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence, bilstm_recurrence_reference
 
@@ -81,32 +79,16 @@ def variant_header(text: str, row_lanes: int, rows_per_thread: int, threads: int
     return text
 
 
-def build_variants(workdir: Path) -> dict[str, ctypes.CDLL]:
-    """Compile every variant, all ``nvcc``s at once, each in its own
-    directory beside its copy of the header."""
+def build_variants(workdir: Path) -> dict:
+    """Compile every variant, all ``nvcc``s at once, each with its copy of
+    the header."""
     header = (_build.CSRC / HEADER).read_text()
-    procs = {}
-    for name, variant in VARIANTS.items():
-        d = workdir / name
-        d.mkdir()
-        (d / HEADER).write_text(variant_header(header, *variant))
-        shutil.copy(_build.CSRC / SOURCE, d / SOURCE)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / SOURCE)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} exited {proc.returncode}:\n{out}")
+    built = _build.build_variants(SOURCE, {name: {HEADER: variant_header(header, *variant)}
+                                           for name, variant in VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
         regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
-        libs[name] = ctypes.CDLL(str(workdir / name / "lib.so"))
-    return libs
-
-
-def use(libs, name):
-    """Point the wrapper at a variant's library."""
-    _build._libs[SOURCE] = libs[name]
+    return {name: lib for name, (lib, _) in built.items()}
 
 
 def cases(gen):
@@ -124,18 +106,6 @@ def cases(gen):
     yield "question_final", (*q, *w, lens), False
 
 
-def time_ms(fn, iters=10):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 @torch.no_grad()
 def main():
     if not torch.cuda.is_available():
@@ -144,21 +114,21 @@ def main():
     print(torch.cuda.get_device_name(0), flush=True)
     _build.BUILD_DIR.mkdir(exist_ok=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    try:
-        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            libs = build_variants(Path(tmp))
-            order = list(VARIANTS) + list(VARIANTS)[::-1]
-            for shape, args, outs in cases(torch.Generator(device="cuda").manual_seed(0)):
-                plan = lstm_kernel.launch_plan(libs["committed"], "bilstm_recurrence", args[0].shape[1], H,
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build_variants(Path(tmp))
+        order = list(VARIANTS) + list(VARIANTS)[::-1]
+        for shape, args, outs in cases(torch.Generator(device="cuda").manual_seed(0)):
+            with _build.using(SOURCE, libs["committed"]):
+                plan = lstm_kernel.launch_plan("bilstm_recurrence", args[0].shape[1], H,
                                                lstm_kernel.gate_dtype_code("gates", args[0]))
-                print(f"[{shape}] plan: cluster {plan.cluster}, clusters {plan.clusters}, idle SMs "
-                      f"{sms - plan.cluster * plan.clusters}, rows per tile {plan.rows_per_tile}, items per "
-                      f"cluster {plan.tiles_per_cluster}", flush=True)
-                want = bilstm_recurrence_reference(*args, with_outputs=outs)
-                want = want if outs else (want,)
-                times = {}
-                for name in order:
-                    use(libs, name)
+            print(f"[{shape}] plan: cluster {plan.cluster}, clusters {plan.clusters}, idle SMs "
+                  f"{sms - plan.cluster * plan.clusters}, rows per tile {plan.rows_per_tile}, items per "
+                  f"cluster {plan.tiles_per_cluster}", flush=True)
+            want = bilstm_recurrence_reference(*args, with_outputs=outs)
+            want = want if outs else (want,)
+            times = {}
+            for name in order:
+                with _build.using(SOURCE, libs[name]):
                     got = bilstm_recurrence(*args, with_outputs=outs)
                     torch.cuda.synchronize()
                     got = got if outs else (got,)
@@ -170,19 +140,16 @@ def main():
                         raise RuntimeError(f"{name} at {shape}: max abs err {err:.3e} against the plain version")
                     del got
                     times.setdefault(name, []).append(
-                        time_ms(lambda: bilstm_recurrence(*args, with_outputs=outs)))
-                for name, ms in times.items():
-                    note = f" (timing only: {VARIANTS[name][3]} cut)" if VARIANTS[name][3] in TIMING_ONLY else ""
-                    print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
-                if shape == "appearance":
-                    use(libs, "committed")
+                        time_ms(lambda: bilstm_recurrence(*args, with_outputs=outs), 10))
+            for name, ms in times.items():
+                note = f" (timing only: {VARIANTS[name][3]} cut)" if VARIANTS[name][3] in TIMING_ONLY else ""
+                print(f"[{shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms) + f" ms{note}", flush=True)
+            if shape == "appearance":
+                with _build.using(SOURCE, libs["committed"]):
                     mhz, watts, limit = clocks_under_load(lambda: bilstm_recurrence(*args, with_outputs=outs))
-                    print(f"[{shape}] committed under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W of "
-                          f"{limit:.1f} W", flush=True)
-                del want
-    finally:
-        _build._libs.pop(SOURCE, None)
-
+                print(f"[{shape}] committed under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W of "
+                      f"{limit:.1f} W", flush=True)
+            del want
 
 
 if __name__ == "__main__":

@@ -63,8 +63,8 @@ from dualvgr_tpu_torch.models.fusion import MFB
 from dualvgr_tpu_torch.models.graph import AttentionSFGCN, PunishGAT, PunishGCN, dense_self_loop_adjacency
 from dualvgr_tpu_torch.models.init import init_dualvgr_
 from dualvgr_tpu_torch.ops.dropout import Dropout
-from dualvgr_tpu_torch.ops.gat_kernel import MAX_DIM, MAX_NODES, gat_cycle
-from dualvgr_tpu_torch.ops.lstm_kernel import MAX_HIDDEN
+from dualvgr_tpu_torch.ops import gat_kernel, lstm_kernel, proj_kernel
+from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle
 from dualvgr_tpu_torch.ops.precision import stream_dtype_of, streamed_einsum
 from dualvgr_tpu_torch.utils.device import resolve_device
 from dualvgr_tpu_torch.utils.trace import count, span
@@ -313,23 +313,16 @@ def kernel_dim_limits(*, vision_dim: int = 2048, module_dim: int = 768, num_of_n
     cycle (kernel 2) runs only with the GAT module and graph_layers == 1, so
     only there do its limits apply; the projection (kernel 6) and its tanh
     pass only under compute_dtype "bfloat16", on the appearance features
-    (D = vision_dim) into 4H gate columns.
+    (D = vision_dim) into 4H gate columns. Each kernel module words its
+    own limits; the model's names for the dims follow in parentheses.
     """
-    out = []
     hidden = module_dim // 2
-    if hidden % 4 or hidden > MAX_HIDDEN:
-        out.append(f"the BiLSTM kernels take hidden size module_dim // 2 = {hidden} only if it is a multiple "
-                   f"of 4 and at most {MAX_HIDDEN}")
+    found = [(lstm_kernel.hidden_limit(hidden), "H = module_dim // 2")]
     if graph_module == "GAT" and graph_layers == 1:
-        if num_of_nodes > MAX_NODES:
-            out.append(f"the graph-cycle kernel takes num_of_nodes <= {MAX_NODES}, got {num_of_nodes}")
-        if module_dim > MAX_DIM or module_dim % 4:
-            out.append(f"the graph-cycle kernel takes module_dim <= {MAX_DIM} and a multiple of 4, got "
-                       f"{module_dim}")
-    if stream_dtype_of(compute_dtype) is not None and (vision_dim % 8 or 4 * hidden % 8):
-        out.append(f"the bf16 projection kernel takes vision_dim and 4 * (module_dim // 2) as multiples of 8, "
-                   f"got {vision_dim} and {4 * hidden}")
-    return out
+        found += [(msg, "N = num_of_nodes, D = module_dim") for msg in gat_kernel.dim_limits(num_of_nodes, module_dim)]
+    if stream_dtype_of(compute_dtype) is not None:
+        found.append((proj_kernel.dim_limit(vision_dim, 4 * hidden), "D = vision_dim, 4H = 4 * (module_dim // 2)"))
+    return [f"{msg} ({names})" for msg, names in found if msg is not None]
 
 
 def build_model(*, device: str | torch.device = "cuda", seed: int = 0,

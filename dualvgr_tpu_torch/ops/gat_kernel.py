@@ -11,10 +11,10 @@ out = h + SFGCN([common, spec]).
 The wrapper calls the torch custom op ``dualvgr_torch::gat_cycle``, which
 ``torch.export`` keeps as one node, scores' strides and all. On a CPU
 tensor the op runs ``gat_cycle_reference``; on a CUDA tensor it launches
-``csrc/gat_cycle.cu`` or raises, and counts the launch in
-``gat_cycle.launches``. That source says what bounds
-the kernel on the H100 and what its design does about it: the four D x D
-products, fp32 FMAs on the CUDA cores, bound it by operations; a
+``csrc/gat_cycle.cu`` through the shared launch (``ops/launch.py``) or
+raises, and counts the launch in ``gat_cycle.launches``. That source says
+what bounds the kernel on the H100 and what its design does about it: the
+four D x D products, fp32 FMAs on the CUDA cores, bound it by operations; a
 thread-block cluster takes several videos, each CTA owns whole heads (a
 column slice), the weights' k-chunks stream through shared memory and
 serve every row of the tile, and the cluster sums its partial scores
@@ -23,20 +23,19 @@ of a launch at B = 256, N = 16 on the H100, their FMAs at about 43% of the
 fp32 rate (``bench/gat_kernel_ab.py``'s cuts). The launch plan is
 ``cycle_plan``, here, so the CPU tests cover it; ``card_plan`` gives it the
 clusters of each size the card keeps resident (30 of 4 CTAs, 66 of 2 on an
-H100: a cluster's CTAs share a GPC).
+H100: a cluster's CTAs share a GPC). ``dim_limits`` says which dims the
+kernel cannot take.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm_kernel import OPS_NAMESPACE, _check, refuse_autograd
+from dualvgr_tpu_torch.ops.launch import OPS_NAMESPACE, call, check, dispatch, launch, refuse_autograd
 
 MAX_NODES = 20  # kMaxNodes in the source
 MAX_DIM = 768  # kMaxDim in the source
@@ -116,12 +115,18 @@ def smem_bytes(n, d, heads, cluster, videos, col_lanes, tile_rows):
                 + videos * hpc * n * -(-n // 4) * 4 + 3 * rows)
 
 
-def _check_dims(n, d, heads):
-    if n <= 0 or n > MAX_NODES or d <= 0 or d > MAX_DIM or d % 4 or heads <= 0 or d % heads:
-        raise ValueError(
-            f"gat_cycle takes N <= {MAX_NODES}, D <= {MAX_DIM}, D % 4 == 0 and "
-            f"H*hd == D; got N={n}, D={d}, H={heads}"
-        )
+def dim_limits(n, d, heads=None):
+    """Why the kernel cannot take N = ``n`` nodes, width D = ``d`` and
+    ``heads`` heads (not asked if None): one message for each limit
+    broken, none if it can."""
+    out = []
+    if n <= 0 or n > MAX_NODES:
+        out.append(f"the graph-cycle kernel takes N <= {MAX_NODES} nodes, got {n}")
+    if d <= 0 or d > MAX_DIM or d % 4:
+        out.append(f"the graph-cycle kernel takes D <= {MAX_DIM} and a multiple of 4, got {d}")
+    if heads is not None and (heads <= 0 or d % heads):
+        out.append(f"the graph-cycle kernel takes H heads of hd columns, H*hd == D; got D={d}, H={heads}")
+    return out
 
 
 def _tile_rows(rows, col_lanes):
@@ -163,7 +168,8 @@ def cycle_plan(b, n, d, heads, resident=None, cluster=None):
     """
     if b <= 0:
         raise ValueError(f"gat_cycle needs a batch, got B={b}")
-    _check_dims(n, d, heads)
+    if broken := dim_limits(n, d, heads):
+        raise ValueError("; ".join(broken))
     counts = dict(resident or ())
     best = None
     for size in (cluster,) if cluster else cluster_sizes(d, heads):
@@ -221,37 +227,33 @@ def plan_args(plan):
     return plan.cluster, plan.clusters, plan.col_lanes, plan.tile_rows
 
 
-def _entry(name):
-    fn = getattr(_build.load("gat_cycle.cu"), name)
-    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
-    return fn
-
-
 def library_smem_bytes(b, n, d, heads, plan):
     """The shared memory per CTA the library launches the plan with (the
     build's own formula); -1 if the build refuses the plan."""
-    return _entry("gat_cycle_smem_bytes")(b, n, d, heads, *plan_args(plan))
+    return call("gat_cycle_smem_bytes", None, b, n, d, heads, *plan_args(plan))
 
 
 _resident: dict = {}
 
 
-def active_clusters(b, n, d, heads, plan):
-    """How many of the plan's clusters the card keeps resident at once
-    (``cudaOccupancyMaxActiveClusters``); raises if the card refuses."""
-    count = _entry("gat_cycle_active_clusters")(b, n, d, heads, *plan_args(plan))
+def active_clusters(b, n, d, heads, plan, dev=None):
+    """How many of the plan's clusters the card (``dev``, or the current
+    device) keeps resident at once (``cudaOccupancyMaxActiveClusters``);
+    raises if the card refuses."""
+    count = call("gat_cycle_active_clusters", dev, b, n, d, heads, *plan_args(plan))
     if count <= 0:
         raise RuntimeError(f"gat_cycle: the card keeps no cluster of {plan.cluster} CTAs resident (cudaError {-count})")
     return count
 
 
-def card_plan(b, n, d, heads):
-    """``cycle_plan`` with the clusters of each size this card keeps
-    resident, asked once per device and dims (one CTA an SM, whatever the
-    tile)."""
-    key = (torch.cuda.current_device(), n, d, heads)
+def card_plan(b, n, d, heads, dev=None):
+    """``cycle_plan`` with the clusters of each size the card (``dev``, or
+    the current device) keeps resident, asked once per device and dims
+    (one CTA an SM, whatever the tile)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
+    key = (dev, n, d, heads)
     if key not in _resident:
-        _resident[key] = tuple((size, active_clusters(b, n, d, heads, cycle_plan(b, n, d, heads, cluster=size)))
+        _resident[key] = tuple((size, active_clusters(b, n, d, heads, cycle_plan(b, n, d, heads, cluster=size), dev))
                                for size in cluster_sizes(d, heads))
     return cycle_plan(b, n, d, heads, _resident[key])
 
@@ -283,16 +285,6 @@ def gat_cycle_reference(
     return h + (beta * common + (1.0 - beta) * spec), common, spec
 
 
-def _launch_fn():
-    fn = _build.load("gat_cycle.cu").gat_cycle_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 14
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w):
     """One stream's cycle (see the module docstring). Returns (out, common, spec).
     Eval only: raises if grad mode is on and an input requires grad (the
@@ -301,9 +293,7 @@ def gat_cycle(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj
     one node of the graph."""
     args = (h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w)
     refuse_autograd("gat_cycle", *args)
-    if h.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"gat_cycle runs on CPU or CUDA, not {h.device}")
-    return _cycle_op(*args)
+    return dispatch("gat_cycle", h, _cycle_op, _cycle_op)(*args)
 
 
 gat_cycle.launches = 0
@@ -324,7 +314,7 @@ def _(h, *_):
 
 
 @_cycle_op.register_kernel("cuda")
-def _(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w):
+def _cycle_cuda(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, score_w):
     """The op on CUDA tensors: one launch of ``csrc/gat_cycle.cu``."""
     dev = h.device
     if h.dim() != 3:
@@ -334,13 +324,13 @@ def _(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, scor
     hd = ac.shape[1] // 2
     if heads * hd != d:
         raise ValueError(f"gat_cycle takes H*hd == D; got D={d}, H={heads}, hd={hd}")
-    _check("h", h, (bsz, n, d), dev)
+    check("h", h, (bsz, n, d), dev)
     for name, t, shape in (
         ("wc", wc, (d, d)), ("bc", bc, (d,)), ("ac", ac, (heads, 2 * hd)), ("ac_bias", ac_bias, (heads,)),
         ("ws", ws, (d, d)), ("bs", bs, (d,)), ("a_s", a_s, (heads, 2 * hd)), ("as_bias", as_bias, (heads,)),
         ("proj_w", proj_w, (d, d)), ("proj_b", proj_b, (d,)), ("score_w", score_w, (d, 1)),
     ):
-        _check(name, t, shape, dev)
+        check(name, t, shape, dev)
     # scores are read through their strides: QueryPunish's per-clip score
     # broadcast to the head width (stride 0) needs no copy
     if scores.device != dev or scores.dtype != torch.float32 or tuple(scores.shape) != (bsz, n, hd):
@@ -353,18 +343,12 @@ def _(h, scores, wc, bc, ac, ac_bias, ws, bs, a_s, as_bias, proj_w, proj_b, scor
     # h and the D x D weights are read 16 bytes at a time
     h, wc, ws, proj_w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (h, wc, ws, proj_w))
     out, common, spec = (torch.empty_like(h) for _ in range(3))
-    with torch.cuda.device(dev):
-        plan = card_plan(bsz, n, d, heads)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launch_fn()(
-            h.data_ptr(), scores.data_ptr(), *scores.stride(),
-            wc.data_ptr(), bc.data_ptr(), ac.data_ptr(), ac_bias.data_ptr(),
-            ws.data_ptr(), bs.data_ptr(), a_s.data_ptr(), as_bias.data_ptr(),
-            proj_w.data_ptr(), proj_b.data_ptr(), score_w.data_ptr(),
-            out.data_ptr(), common.data_ptr(), spec.data_ptr(),
-            bsz, n, d, heads, *plan_args(plan), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gat_cycle launch failed: cudaError {err}")
-    gat_cycle.launches += 1
+    plan = card_plan(bsz, n, d, heads, dev)
+    launch(gat_cycle, "gat_cycle_launch", dev,
+           h.data_ptr(), scores.data_ptr(), *scores.stride(),
+           wc.data_ptr(), bc.data_ptr(), ac.data_ptr(), ac_bias.data_ptr(),
+           ws.data_ptr(), bs.data_ptr(), a_s.data_ptr(), as_bias.data_ptr(),
+           proj_w.data_ptr(), proj_b.data_ptr(), score_w.data_ptr(),
+           out.data_ptr(), common.data_ptr(), spec.data_ptr(),
+           bsz, n, d, heads, *plan_args(plan))
     return out, common, spec

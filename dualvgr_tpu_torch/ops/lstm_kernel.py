@@ -15,29 +15,31 @@ The wrapper calls the torch custom op ``dualvgr_torch::bilstm_recurrence``,
 which ``torch.export`` keeps as one node, so an exported serving program
 carries the kernel (``dualvgr_tpu_torch/export.py``). On a CPU tensor the
 op runs ``bilstm_recurrence_reference``, the plain PyTorch loop; on a CUDA
-tensor it launches ``csrc/bilstm_recurrence.cu`` or raises, and counts the
-launch in ``bilstm_recurrence.launches``. What bounds the kernel on the H100
+tensor it launches ``csrc/bilstm_recurrence.cu`` through the shared
+launch (``ops/launch.py``) or raises, and counts the launch in
+``bilstm_recurrence.launches``. What bounds the kernel on the H100
 and what its design does about it is written in ``csrc/bilstm_cluster.cuh``,
 which kernel 3 shares: each CTA of a thread-block cluster keeps its
 slice of W_hh in shared memory for the whole launch, persistent clusters
 walk (direction, row tile) items over all T steps, and the new h goes to
 every CTA of the cluster through distributed shared memory. The launch
-plan is ``recurrence_plan``, here, so the CPU tests cover it. The work is
-fp32 FMA on the CUDA cores, so the bound is set by operations.
+plan is ``recurrence_plan``, here, so the CPU tests cover it, and the
+limit on the hidden size that kernels 1, 3 and 4 share is ``hidden_limit``.
+The work is fp32 FMA on the CUDA cores, so the bound is set by operations.
 """
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
 
 from dualvgr_tpu_torch.ops import _build
+from dualvgr_tpu_torch.ops.launch import (
+    OPS_NAMESPACE, call, check, dispatch, int32_lengths, launch, ptr, refuse_autograd,
+)
 
 MAX_HIDDEN = 384  # kMaxHidden in csrc/bilstm_cluster.cuh
-# the namespace of the kernels' torch custom ops (``torch.ops.dualvgr_torch``)
-OPS_NAMESPACE = "dualvgr_torch"
 
 # The cluster kernel's build constants (csrc/bilstm_cluster.cuh), which the
 # plan mirrors: rows per tile (kRows), gate columns a CTA holds (kGateCols,
@@ -90,12 +92,30 @@ def bwd_smem_bytes(hidden, padded):
     return 16 + 4 * (GATE_COLS * (hidden + 4) + rows * GATE_COLS + rows * padded)
 
 
+def hidden_limit(hidden):
+    """Why the BiLSTM kernels (1, 3 and 4) cannot take hidden size
+    ``hidden``, or None if they can: H a positive multiple of 4 (the h
+    exchange moves 16 bytes a store), at most MAX_HIDDEN."""
+    if hidden <= 0 or hidden % 4 or hidden > MAX_HIDDEN:
+        return f"the BiLSTM kernels take hidden size {hidden} only if H % 4 == 0 and H <= {MAX_HIDDEN}"
+    return None
+
+
+def gate_hidden(g):
+    """H of ``g`` = 4H gate columns; raises ``ValueError`` where the
+    kernels cannot take it."""
+    hidden = g // 4 if g % 4 == 0 else g / 4
+    if (msg := hidden_limit(hidden)) is not None:
+        raise ValueError(msg)
+    return hidden
+
+
 def cluster_shape(hidden):
     """``(cluster, units)``: the smallest cluster whose CTAs' slices hold
     all ``hidden`` units, each CTA at most GATE_COLS / 4 of them, a
-    multiple of 4 (the h exchange moves 16 bytes a store)."""
-    if hidden <= 0 or hidden % 4 or hidden > MAX_HIDDEN:
-        raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
+    multiple of 4."""
+    if (msg := hidden_limit(hidden)) is not None:
+        raise ValueError(msg)
     for cluster in CLUSTER_SIZES:
         units = 4 * -(-hidden // (4 * cluster))
         if units <= GATE_COLS // 4:
@@ -147,18 +167,15 @@ def cluster_items(plan, c):
 _active: dict = {}
 
 
-def active_clusters(lib, prefix, hidden, code):
-    """How many clusters of ``<prefix>``'s kernel in ``lib`` the card keeps
-    resident at once (``cudaOccupancyMaxActiveClusters``), asked once per
-    library, H and gate type (``code`` None for kernel 4, which has one
-    type). Raises if the card refuses the cluster."""
-    key = (id(lib), prefix, hidden, code)
+def active_clusters(prefix, hidden, code, dev=None):
+    """How many clusters of kernel ``prefix`` (its source ``<prefix>.cu``)
+    the card keeps resident at once (``cudaOccupancyMaxActiveClusters``),
+    asked once per library in place, H and gate type (``code`` None for
+    kernel 4, which has one type). Raises if the card refuses the cluster."""
+    key = (_build.load(f"{prefix}.cu"), hidden, code)
     if key not in _active:
         cluster, units = cluster_shape(hidden)
-        fn = getattr(lib, f"{prefix}_active_clusters")
-        args = (hidden, cluster, units) + (() if code is None else (code,))
-        fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
-        n = fn(*args)
+        n = call(f"{prefix}_active_clusters", dev, hidden, cluster, units, *(() if code is None else (code,)))
         if n <= 0:
             raise RuntimeError(f"{prefix}: the card keeps no cluster of {cluster} CTAs resident "
                                f"(H = {hidden}; cudaError {-n})")
@@ -166,20 +183,17 @@ def active_clusters(lib, prefix, hidden, code):
     return _active[key]
 
 
-def library_smem_bytes(lib, prefix, hidden):
-    """The shared memory per CTA that ``<prefix>``'s kernel in ``lib``
+def library_smem_bytes(prefix, hidden):
+    """The shared memory per CTA that kernel ``prefix``'s library in place
     launches with at hidden size ``hidden`` (the build's own formula)."""
-    cluster, units = cluster_shape(hidden)
-    fn = getattr(lib, f"{prefix}_smem_bytes")
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    return fn(hidden, cluster, units)
+    return call(f"{prefix}_smem_bytes", None, hidden, *cluster_shape(hidden))
 
 
-def launch_plan(lib, prefix, rows, hidden, code, plan=recurrence_plan):
-    """The plan for one launch of ``<prefix>_launch`` in ``lib``
-    (``plan``: ``recurrence_plan`` for kernels 1 and 3, ``backward_plan``
-    for kernel 4)."""
-    return plan(rows, hidden, active_clusters(lib, prefix, hidden, code))
+def launch_plan(prefix, rows, hidden, code, dev=None, plan=recurrence_plan):
+    """The plan for one launch of kernel ``prefix`` on ``dev`` (``plan``:
+    ``recurrence_plan`` for kernels 1 and 3, ``backward_plan`` for
+    kernel 4)."""
+    return plan(rows, hidden, active_clusters(prefix, hidden, code, dev))
 
 
 def plan_args(plan):
@@ -260,23 +274,6 @@ def bilstm_recurrence_reference(
     return (final, outs.to(xproj_f.dtype)) if with_outputs else final
 
 
-def refuse_autograd(name, *tensors):
-    """Raise where a kernel would silently cut the autograd graph.
-
-    The kernels launch through ctypes and record nothing for autograd, so
-    with grad mode on, an input that requires grad would come back with
-    detached outputs and its weights would get no gradient. Runs before
-    the device dispatch, on CPU tensors too. The trainable BiLSTM goes
-    through ``ops/lstm_train.py``, whose Functions call the kernels with
-    grad mode off.
-    """
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} records nothing for autograd, and an input requires grad: call it "
-            "under torch.no_grad(), or use the trainable ops of dualvgr_tpu_torch.ops.lstm_train"
-        )
-
-
 GATE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the sources' gate_dtype argument
 
 
@@ -285,28 +282,6 @@ def gate_dtype_code(name, t):
     if t.dtype not in GATE_DTYPES:
         raise TypeError(f"{name} has dtype {t.dtype}, expected float32 or bfloat16")
     return GATE_DTYPES[t.dtype]
-
-
-def launch_fn(source, prefix, n_ptrs, typed=True):
-    """``(library, <prefix>_launch)`` of ``csrc/<source>``: ``n_ptrs``
-    pointers, T, R, H, the gate type (unless not ``typed``: kernel 4) and
-    the plan's four numbers, then the stream."""
-    lib = _build.load(source)
-    fn = getattr(lib, f"{prefix}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * (8 if typed else 7) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
-def _check(name, t, shape, device, dtype=torch.float32):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def bilstm_recurrence(
@@ -320,9 +295,8 @@ def bilstm_recurrence(
     ``torch.export`` keeps the kernel as one node of the graph.
     """
     refuse_autograd("bilstm_recurrence", xproj_f, xproj_b_rev, w_hh_f, w_hh_b)
-    if xproj_f.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"bilstm_recurrence runs on CPU or CUDA, not {xproj_f.device}")
-    final, outs = _recurrence_op(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs)
+    op = dispatch("bilstm_recurrence", xproj_f, _recurrence_op, _recurrence_op)
+    final, outs = op(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs)
     return (final, outs) if with_outputs else final
 
 
@@ -347,38 +321,24 @@ def _(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs):
 
 
 @_recurrence_op.register_kernel("cuda")
-def _(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs):
+def _recurrence_cuda(xproj_f, xproj_b_rev, w_hh_f, w_hh_b, lengths, with_outputs):
     """The op on CUDA tensors: one launch of ``csrc/bilstm_recurrence.cu``."""
     dev = xproj_f.device
     if xproj_f.dim() != 3:
         raise ValueError(f"xproj_f must be (T, R, 4H), got {tuple(xproj_f.shape)}")
     t_total, r, g = xproj_f.shape
-    hidden = g // 4
-    if g % 4 or hidden % 4 or hidden > MAX_HIDDEN:
-        raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
+    hidden = gate_hidden(g)
     code = gate_dtype_code("xproj_f", xproj_f)
-    _check("xproj_f", xproj_f, (t_total, r, g), dev, xproj_f.dtype)
-    _check("xproj_b_rev", xproj_b_rev, (t_total, r, g), dev, xproj_f.dtype)
-    _check("w_hh_f", w_hh_f, (hidden, g), dev)
-    _check("w_hh_b", w_hh_b, (hidden, g), dev)
-    lens_ptr = None
-    if lengths is not None:
-        if lengths.dtype.is_floating_point or tuple(lengths.shape) != (r,):
-            raise ValueError(f"lengths must be integer (R,) = ({r},), got {lengths.dtype} {tuple(lengths.shape)}")
-        lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
-        lens_ptr = lengths.data_ptr()
+    check("xproj_f", xproj_f, (t_total, r, g), dev, xproj_f.dtype)
+    check("xproj_b_rev", xproj_b_rev, (t_total, r, g), dev, xproj_f.dtype)
+    check("w_hh_f", w_hh_f, (hidden, g), dev)
+    check("w_hh_b", w_hh_b, (hidden, g), dev)
+    lengths = int32_lengths(lengths, r, dev)
     final = torch.empty((r, 2 * hidden), device=dev, dtype=xproj_f.dtype)
     outs = torch.empty((r, t_total, 2 * hidden) if with_outputs else (0,), device=dev, dtype=xproj_f.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, fn = launch_fn("bilstm_recurrence.cu", "bilstm_recurrence", 7)
-        plan = launch_plan(lib, "bilstm_recurrence", r, hidden, code)
-        err = fn(
-            xproj_f.data_ptr(), xproj_b_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-            lens_ptr, final.data_ptr(), outs.data_ptr() if with_outputs else None,
-            t_total, r, hidden, code, *plan_args(plan), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bilstm_recurrence launch failed: cudaError {err}")
-    bilstm_recurrence.launches += 1
+    plan = launch_plan("bilstm_recurrence", r, hidden, code, dev)
+    launch(bilstm_recurrence, "bilstm_recurrence_launch", dev,
+           xproj_f.data_ptr(), xproj_b_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+           ptr(lengths), final.data_ptr(), outs.data_ptr() if with_outputs else None,
+           t_total, r, hidden, code, *plan_args(plan))
     return final, outs

@@ -31,7 +31,8 @@ weights, the residuals, the activations, ``final``, ``outs`` and the
 dgates are fp32 either way, as in the TPU kernels, so the backward has
 one type. On a CPU tensor each wrapper runs its ``*_reference``,
 the plain PyTorch loop; on a CUDA tensor it launches
-``csrc/bilstm_train_fwd.cu`` or ``csrc/bilstm_train_bwd.cu`` or raises. Both
+``csrc/bilstm_train_fwd.cu`` or ``csrc/bilstm_train_bwd.cu`` through the
+shared launch (``ops/launch.py``) or raises. Both
 are thread-block cluster kernels with each CTA's slice of W_hh resident in
 shared memory; their launch plans (``recurrence_plan``, ``backward_plan``
 in ``ops/lstm_kernel.py``) are computed here and checked by the C entries.
@@ -44,9 +45,9 @@ from __future__ import annotations
 
 import torch
 
+from dualvgr_tpu_torch.ops.launch import check, dispatch, int32_lengths, launch, ptr, refuse_autograd
 from dualvgr_tpu_torch.ops.lstm_kernel import (
-    MAX_HIDDEN, _check, backward_plan, gate_dtype_code, launch_fn, launch_plan, plan_args, recurrence_loop,
-    refuse_autograd,
+    backward_plan, gate_dtype_code, gate_hidden, launch_plan, plan_args, recurrence_loop,
 )
 from dualvgr_tpu_torch.utils.trace import count
 
@@ -100,64 +101,36 @@ def bilstm_train_bwd_reference(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, dou
     return dxs[0], dxs[1]
 
 
-def _lengths(lengths, r, dev):
-    """``lengths`` as contiguous int32 on ``dev`` (None stays None); raises
-    unless it is integer (R,)."""
-    if lengths is None:
-        return None
-    if lengths.dtype.is_floating_point or tuple(lengths.shape) != (r,):
-        raise ValueError(f"lengths must be integer (R,) = ({r},), got {lengths.dtype} {tuple(lengths.shape)}")
-    return lengths.to(device=dev, dtype=torch.int32).contiguous()
-
-
-def _hidden(g):
-    """H of 4H = ``g`` gate columns; raises where the kernels cannot take it."""
-    hidden = g // 4
-    if g % 4 or hidden % 4 or hidden > MAX_HIDDEN:
-        raise ValueError(f"hidden size {hidden} unsupported: needs H % 4 == 0 and H <= {MAX_HIDDEN}")
-    return hidden
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def bilstm_train_fwd(xf, xb_rev, w_hh_f, w_hh_b, lengths=None, *, with_outputs: bool = False):
     """Training forward (see the module docstring): ``(final, outs, hprev, cprev, acts)``.
     On the card it counts the bytes of activations it keeps in the
     tracer's ``lstm.gate_acts_bytes``."""
     refuse_autograd("bilstm_train_fwd", xf, xb_rev, w_hh_f, w_hh_b)
-    if xf.device.type == "cpu":
-        return bilstm_train_fwd_reference(xf, xb_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs)
-    if xf.device.type != "cuda":
-        raise ValueError(f"bilstm_train_fwd runs on CPU or CUDA, not {xf.device}")
+    run = dispatch("bilstm_train_fwd", xf, bilstm_train_fwd_reference, _fwd_cuda)
+    return run(xf, xb_rev, w_hh_f, w_hh_b, lengths, with_outputs=with_outputs)
+
+
+def _fwd_cuda(xf, xb_rev, w_hh_f, w_hh_b, lengths, *, with_outputs):
     dev = xf.device
     if xf.dim() != 3:
         raise ValueError(f"xf must be (T, R, 4H), got {tuple(xf.shape)}")
     t_total, r, g = xf.shape
-    hidden = _hidden(g)
+    hidden = gate_hidden(g)
     code = gate_dtype_code("xf", xf)
-    _check("xf", xf, (t_total, r, g), dev, xf.dtype)
-    _check("xb_rev", xb_rev, (t_total, r, g), dev, xf.dtype)
-    _check("w_hh_f", w_hh_f, (hidden, g), dev)
-    _check("w_hh_b", w_hh_b, (hidden, g), dev)
-    lengths = _lengths(lengths, r, dev)
+    check("xf", xf, (t_total, r, g), dev, xf.dtype)
+    check("xb_rev", xb_rev, (t_total, r, g), dev, xf.dtype)
+    check("w_hh_f", w_hh_f, (hidden, g), dev)
+    check("w_hh_b", w_hh_b, (hidden, g), dev)
+    lengths = int32_lengths(lengths, r, dev)
     final = torch.empty((r, 2 * hidden), device=dev, dtype=torch.float32)
     outs = torch.empty((r, t_total, 2 * hidden), device=dev, dtype=torch.float32) if with_outputs else None
     hprev, cprev = (torch.empty((t_total, r, 2 * hidden), device=dev, dtype=torch.float32) for _ in range(2))
     acts = torch.empty((2, t_total, r, g), device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, fn = launch_fn("bilstm_train_fwd.cu", "bilstm_train_fwd", 10)
-        plan = launch_plan(lib, "bilstm_train_fwd", r, hidden, code)
-        err = fn(
-            xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths),
-            final.data_ptr(), _ptr(outs), hprev.data_ptr(), cprev.data_ptr(), acts.data_ptr(),
-            t_total, r, hidden, code, *plan_args(plan), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bilstm_train_fwd launch failed: cudaError {err}")
-    bilstm_train_fwd.launches += 1
+    plan = launch_plan("bilstm_train_fwd", r, hidden, code, dev)
+    launch(bilstm_train_fwd, "bilstm_train_fwd_launch", dev,
+           xf.data_ptr(), xb_rev.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), ptr(lengths),
+           final.data_ptr(), ptr(outs), hprev.data_ptr(), cprev.data_ptr(), acts.data_ptr(),
+           t_total, r, hidden, code, *plan_args(plan))
     count("lstm.gate_acts_bytes", acts.numel() * acts.element_size())
     return final, outs, hprev, cprev, acts
 
@@ -167,36 +140,30 @@ def bilstm_train_bwd(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts=None):
     forward's ``acts`` and ``cprev``. ``douts`` is None for a final-only
     forward and is then never read."""
     refuse_autograd("bilstm_train_bwd", acts, w_hh_f, w_hh_b, cprev, dfinal, douts)
-    if acts.device.type == "cpu":
-        return bilstm_train_bwd_reference(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts)
-    if acts.device.type != "cuda":
-        raise ValueError(f"bilstm_train_bwd runs on CPU or CUDA, not {acts.device}")
+    run = dispatch("bilstm_train_bwd", acts, bilstm_train_bwd_reference, _bwd_cuda)
+    return run(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts)
+
+
+def _bwd_cuda(acts, w_hh_f, w_hh_b, lengths, cprev, dfinal, douts):
     dev = acts.device
     if acts.dim() != 4 or acts.shape[0] != 2:
         raise ValueError(f"acts must be (2, T, R, 4H), got {tuple(acts.shape)}")
     _, t_total, r, g = acts.shape
-    hidden = _hidden(g)
-    _check("acts", acts, (2, t_total, r, g), dev)
-    _check("w_hh_f", w_hh_f, (hidden, g), dev)
-    _check("w_hh_b", w_hh_b, (hidden, g), dev)
-    _check("cprev", cprev, (t_total, r, 2 * hidden), dev)
-    _check("dfinal", dfinal, (r, 2 * hidden), dev)
+    hidden = gate_hidden(g)
+    check("acts", acts, (2, t_total, r, g), dev)
+    check("w_hh_f", w_hh_f, (hidden, g), dev)
+    check("w_hh_b", w_hh_b, (hidden, g), dev)
+    check("cprev", cprev, (t_total, r, 2 * hidden), dev)
+    check("dfinal", dfinal, (r, 2 * hidden), dev)
     if douts is not None:
-        _check("douts", douts, (r, t_total, 2 * hidden), dev)
-    lengths = _lengths(lengths, r, dev)
+        check("douts", douts, (r, t_total, 2 * hidden), dev)
+    lengths = int32_lengths(lengths, r, dev)
     dxf, dxb = (torch.empty((t_total, r, g), device=dev, dtype=torch.float32) for _ in range(2))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib, fn = launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 9, typed=False)
-        plan = launch_plan(lib, "bilstm_train_bwd", r, hidden, None, plan=backward_plan)
-        err = fn(
-            acts.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), _ptr(lengths), cprev.data_ptr(),
-            dfinal.data_ptr(), _ptr(douts), dxf.data_ptr(), dxb.data_ptr(), t_total, r, hidden, *plan_args(plan),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bilstm_train_bwd launch failed: cudaError {err}")
-    bilstm_train_bwd.launches += 1
+    # kernel 4 reads fp32 activations whatever the gates: it has no gate type
+    plan = launch_plan("bilstm_train_bwd", r, hidden, None, dev, plan=backward_plan)
+    launch(bilstm_train_bwd, "bilstm_train_bwd_launch", dev,
+           acts.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), ptr(lengths), cprev.data_ptr(),
+           dfinal.data_ptr(), ptr(douts), dxf.data_ptr(), dxb.data_ptr(), t_total, r, hidden, *plan_args(plan))
     return dxf, dxb
 
 

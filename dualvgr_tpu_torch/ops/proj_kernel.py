@@ -32,22 +32,22 @@ bf16 once per call.
 its ``*_reference``, the same function
 step by step in PyTorch (tanh rounded to bf16, rounded operands upcast, an
 fp32 product, the bias, one rounding); on a CUDA tensor it launches the
-kernel or raises. ``launches`` on each wrapper counts its own kernel's
+kernel through the shared launch (``ops/launch.py``) or raises. ``launches`` on each wrapper counts its own kernel's
 launches: one per call of ``input_proj_one`` and ``input_proj_both``, and
 ``tanh_to_bf16`` counts each tanh pass, the two projections' included.
 They record nothing for autograd: the training path
 (``ops/lstm_train.py``) calls kernel 6 inside its
-``torch.autograd.Function``.
+``torch.autograd.Function``. ``dim_limit`` says which widths the product
+cannot take.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from dualvgr_tpu_torch.ops import _build
-from dualvgr_tpu_torch.ops.lstm_kernel import OPS_NAMESPACE, _check, refuse_autograd
+from dualvgr_tpu_torch.ops.launch import (
+    OPS_NAMESPACE, call, check, check_aligned, dispatch, launch, refuse_autograd,
+)
 
 
 def tanh_to_bf16_reference(x):
@@ -75,19 +75,17 @@ def input_proj_both_reference(x, w_f, b_f, w_b, b_b, *, fuse_tanh: bool = True):
     return _proj_reference(a16, w_f, b_f, False), _proj_reference(a16, w_b, b_b, True)
 
 
-def _lib():
-    lib = _build.load("input_proj.cu")
-    lib.input_proj_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.input_proj_launch.restype = ctypes.c_int
-    lib.tanh_to_bf16_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    lib.tanh_to_bf16_launch.restype = ctypes.c_int
-    return lib
+def dim_limit(d, g):
+    """Why the product cannot take x of width D = ``d`` into ``g`` = 4H
+    gate columns, or None if it can."""
+    if d % 8 or g % 8:
+        return f"the bf16 projection kernel needs D % 8 == 0 and 4H % 8 == 0, got D={d}, 4H={g}"
+    return None
 
 
-def _check_aligned(name, t):
-    """TMA and the 16-byte vector accesses need 16-byte aligned data."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte aligned address (storage offset {t.storage_offset()})")
+def library_smem_bytes():
+    """The dynamic shared memory of the product's CTA, the build's own."""
+    return call("input_proj_smem_bytes", None)
 
 
 def _check_inputs(x, weights, biases, x_dtype):
@@ -97,24 +95,20 @@ def _check_inputs(x, weights, biases, x_dtype):
         raise ValueError(f"x must be (R, T, D), got {tuple(x.shape)}")
     r, t, d = x.shape
     g = weights[0].shape[0]
-    if d % 8 or g % 8:
-        raise ValueError(f"the kernel needs D % 8 == 0 and 4H % 8 == 0, got D={d}, 4H={g}")
-    _check("x", x, (r, t, d), x.device, x_dtype)
-    _check_aligned("x", x)
+    if (msg := dim_limit(d, g)) is not None:
+        raise ValueError(msg)
+    check("x", x, (r, t, d), x.device, x_dtype)
+    check_aligned("x", x)
     for k, (w, b) in enumerate(zip(weights, biases)):
-        _check(f"w_ih[{k}]", w, (g, d), x.device, torch.float32)
-        _check(f"b[{k}]", b, (g,), x.device, torch.float32)
+        check(f"w_ih[{k}]", w, (g, d), x.device, torch.float32)
+        check(f"b[{k}]", b, (g,), x.device, torch.float32)
     return r, t, d, g
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _launch(x, weights, biases, reverse, fuse_tanh):
+def _launch(wrapper, x, weights, biases, reverse, fuse_tanh):
     """One product over ``len(weights)`` (1 or 2) directions, ``reverse`` a
-    flag per direction, after the tanh pass with ``fuse_tanh``; returns
-    their outputs."""
+    flag per direction, after the tanh pass with ``fuse_tanh``, counted in
+    ``wrapper``; returns their outputs."""
     dev = x.device
     r, t, d, g = _check_inputs(x, weights, biases, torch.float32 if fuse_tanh else torch.bfloat16)
     if fuse_tanh:
@@ -122,13 +116,8 @@ def _launch(x, weights, biases, reverse, fuse_tanh):
     w16, bias = torch.cat(weights).to(torch.bfloat16), torch.cat(biases)
     outs = [torch.empty((t, r, g), device=dev, dtype=torch.bfloat16) for _ in weights]
     out_b = outs[1].data_ptr() if len(outs) > 1 else None
-    with torch.cuda.device(dev):
-        err = _lib().input_proj_launch(
-            x.data_ptr(), w16.data_ptr(), bias.data_ptr(), outs[0].data_ptr(), out_b,
-            int(reverse[0]), int(reverse[-1]), r, t, d, g, len(weights), _stream(dev),
-        )
-    if err != 0:
-        raise RuntimeError(f"input_proj launch failed: cudaError {err}")
+    launch(wrapper, "input_proj_launch", dev, x.data_ptr(), w16.data_ptr(), bias.data_ptr(), outs[0].data_ptr(),
+           out_b, int(reverse[0]), int(reverse[-1]), r, t, d, g, len(weights))
     return outs
 
 
@@ -136,20 +125,16 @@ def tanh_to_bf16(x):
     """The tanh pass: x fp32, contiguous, last dimension % 8 == 0 -> bf16
     ``tanh(x)`` of the same shape."""
     refuse_autograd("tanh_to_bf16", x)
-    if x.device.type == "cpu":
-        return tanh_to_bf16_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"tanh_to_bf16 runs on CPU or CUDA, not {x.device}")
+    return dispatch("tanh_to_bf16", x, tanh_to_bf16_reference, _tanh_cuda)(x)
+
+
+def _tanh_cuda(x):
     if x.dim() == 0 or x.shape[-1] % 8:
         raise ValueError(f"the kernel needs a last dimension % 8 == 0, got shape {tuple(x.shape)}")
-    _check("x", x, x.shape, x.device, torch.float32)
-    _check_aligned("x", x)
+    check("x", x, x.shape, x.device, torch.float32)
+    check_aligned("x", x)
     out = torch.empty(x.shape, device=x.device, dtype=torch.bfloat16)
-    with torch.cuda.device(x.device):
-        err = _lib().tanh_to_bf16_launch(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"tanh_to_bf16 launch failed: cudaError {err}")
-    tanh_to_bf16.launches += 1
+    launch(tanh_to_bf16, "tanh_to_bf16_launch", x.device, x.data_ptr(), out.data_ptr(), x.numel())
     return out
 
 
@@ -158,12 +143,11 @@ def input_proj_one(x, w_ih, b, *, reverse: bool = False):
     bf16 (T, R, 4H) of ``tanh(x) @ w_ih^T + b``, time-reversed with
     ``reverse``. On the card: the tanh pass, then the product."""
     refuse_autograd("input_proj_one", x, w_ih, b)
-    if x.device.type == "cpu":
-        return input_proj_one_reference(x, w_ih, b, reverse=reverse)
-    if x.device.type != "cuda":
-        raise ValueError(f"input_proj_one runs on CPU or CUDA, not {x.device}")
-    (out,) = _launch(x, (w_ih,), (b,), (reverse,), fuse_tanh=True)
-    input_proj_one.launches += 1
+    return dispatch("input_proj_one", x, input_proj_one_reference, _one_cuda)(x, w_ih, b, reverse=reverse)
+
+
+def _one_cuda(x, w_ih, b, *, reverse):
+    (out,) = _launch(input_proj_one, x, (w_ih,), (b,), (reverse,), fuse_tanh=True)
     return out
 
 
@@ -177,9 +161,7 @@ def input_proj_both(x, w_f, b_f, w_b, b_b, *, fuse_tanh: bool = True):
     pass inside it, which ``torch.export`` keeps as one node of the graph.
     """
     refuse_autograd("input_proj_both", x, w_f, b_f, w_b, b_b)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"input_proj_both runs on CPU or CUDA, not {x.device}")
-    return _both_op(x, w_f, b_f, w_b, b_b, fuse_tanh)
+    return dispatch("input_proj_both", x, _both_op, _both_op)(x, w_f, b_f, w_b, b_b, fuse_tanh)
 
 
 @torch.library.custom_op(f"{OPS_NAMESPACE}::input_proj_both", mutates_args=(), device_types="cpu")
@@ -196,11 +178,10 @@ def _(x, w_f, b_f, w_b, b_b, fuse_tanh):
 
 
 @_both_op.register_kernel("cuda")
-def _(x, w_f, b_f, w_b, b_b, fuse_tanh):
+def _both_cuda(x, w_f, b_f, w_b, b_b, fuse_tanh):
     """The op on CUDA tensors: the tanh pass with ``fuse_tanh``, then one
     launch of the product in ``csrc/input_proj.cu``."""
-    xf, xb = _launch(x, (w_f, w_b), (b_f, b_b), (False, True), fuse_tanh)
-    input_proj_both.launches += 1
+    xf, xb = _launch(input_proj_both, x, (w_f, w_b), (b_f, b_b), (False, True), fuse_tanh)
     return xf, xb
 
 

@@ -70,17 +70,6 @@ def tiny_batches(n: int = 1, batch: int = 8, seed: int = 7, pad: int = 0, dims=N
     return out
 
 
-def launch_counts() -> tuple:
-    """Launches of kernels 1-6 and of the tanh pass, as their wrappers count them."""
-    from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle
-    from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence
-    from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
-    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_one, tanh_to_bf16
-
-    return tuple(k.launches for k in (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd,
-                                      input_proj_one, input_proj_both, tanh_to_bf16))
-
-
 def _module_grad_norms(model, params) -> dict:
     """The norm of each top-level module's gradient (whole parameters)."""
     ids = {id(p) for p in params}
@@ -113,6 +102,7 @@ def run_steps(spec: dict) -> dict:
 
     from dualvgr_tpu_torch.config import default_config, model_runtime_kwargs
     from dualvgr_tpu_torch.models.dualvgr import build_model
+    from dualvgr_tpu_torch.ops import launch_counts
     from dualvgr_tpu_torch.ops.dropout import Dropout
     from dualvgr_tpu_torch.parallel.comm import all_gather_cat, all_reduce_
     from dualvgr_tpu_torch.parallel.mesh import mesh_axis, shard_batch

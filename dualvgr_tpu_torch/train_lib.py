@@ -62,18 +62,10 @@ from dataclasses import dataclass, field
 import torch
 
 from dualvgr_tpu_torch.models.dualvgr import DualVGR
-from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle
+from dualvgr_tpu_torch.ops import COUNTED_KERNELS, launch_counts
 from dualvgr_tpu_torch.ops.losses import dualvgr_total_loss
-from dualvgr_tpu_torch.ops.lstm_kernel import bilstm_recurrence
-from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
-from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_one, tanh_to_bf16
 from dualvgr_tpu_torch.parallel.comm import all_reduce_
 from dualvgr_tpu_torch.utils.trace import count, span
-
-# the kernels whose ``.launches`` count what the card ran: a graph's replay
-# adds the launches it holds
-COUNTED_KERNELS = (bilstm_recurrence, gat_cycle, bilstm_train_fwd, bilstm_train_bwd, input_proj_one,
-                   input_proj_both, tanh_to_bf16)
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int, decay_epochs: int = 10):
@@ -345,10 +337,6 @@ def _held(state: TrainState) -> list:
     return out
 
 
-def _launch_counts() -> tuple:
-    return tuple(k.launches for k in COUNTED_KERNELS)
-
-
 class _StepGraph:
     """The single-process micro-step at one batch key as one CUDA graph.
 
@@ -365,12 +353,14 @@ class _StepGraph:
         self.inputs = tuple(torch.empty_like(t) for t in inputs)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(state.generator)
-        before = _launch_counts()
+        before = launch_counts()
         # thread_local: the loader's producer pins memory while the step is captured
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outputs = _pack(forward_backward(state, self.inputs, alpha=alpha, beta=beta))
             apply_gradients(state)
-        self.launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        # the kernels' counters count what the card ran: a replay adds the
+        # launches the graph holds, and the capture ran none
+        self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
         for kernel, n in zip(COUNTED_KERNELS, before):
             kernel.launches = n
         self.grads = [p.grad for p in self.params]

@@ -21,15 +21,13 @@ its span and counters to the items it copies, and two gloo ranks sharing the car
 process's train step.
 """
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
 
 from dualvgr_tpu_torch import build_model
 from dualvgr_tpu_torch.bench.proj_probe import compare
-from dualvgr_tpu_torch.ops import gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel
+from dualvgr_tpu_torch.ops import _build, gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -118,8 +116,8 @@ def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
     xf = _t(rs, cuda, t, r, 4 * h)
     w = _t(rs, cuda, h, 4 * h, scale=0.1)
     final = torch.empty(r, 2 * h, device=cuda)
-    lib, fn = lstm_kernel.launch_fn("bilstm_recurrence.cu", "bilstm_recurrence", 7)
-    plan = lstm_kernel.launch_plan(lib, "bilstm_recurrence", r, h, 0)
+    fn = _build.entry("bilstm_recurrence_launch")
+    plan = lstm_kernel.launch_plan("bilstm_recurrence", r, h, 0)
     good = lstm_kernel.plan_args(plan)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (xf.data_ptr(), xf.data_ptr(), w.data_ptr(), w.data_ptr(), None, final.data_ptr(), None)
@@ -132,8 +130,8 @@ def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
     acts = torch.sigmoid(_t(rs, cuda, 2, t, r, 4 * h))
     res = _t(rs, cuda, t, r, 2 * h)
     dx = torch.empty(t, r, 4 * h, device=cuda)
-    lib, fn = lstm_kernel.launch_fn("bilstm_train_bwd.cu", "bilstm_train_bwd", 9, typed=False)
-    plan = lstm_kernel.launch_plan(lib, "bilstm_train_bwd", r, h, None, plan=lstm_kernel.backward_plan)
+    fn = _build.entry("bilstm_train_bwd_launch")
+    plan = lstm_kernel.launch_plan("bilstm_train_bwd", r, h, None, plan=lstm_kernel.backward_plan)
     good = lstm_kernel.plan_args(plan)
     ptrs = (acts.data_ptr(), w.data_ptr(), w.data_ptr(), None, res.data_ptr(), final.data_ptr(), None,
             dx.data_ptr(), dx.data_ptr())
@@ -147,13 +145,12 @@ def test_cluster_entry_refuses_a_plan_it_cannot_run(rs, cuda):
 def test_cluster_plan_shared_memory_is_the_builds(cuda):
     """The plan's shared memory per CTA (``lstm_kernel.smem_bytes``) is what
     each cluster library launches with, at every H it takes."""
-    for source, prefix, plan in (("bilstm_recurrence.cu", "bilstm_recurrence", lstm_kernel.recurrence_plan),
-                                 ("bilstm_train_fwd.cu", "bilstm_train_fwd", lstm_kernel.recurrence_plan),
-                                 ("bilstm_train_bwd.cu", "bilstm_train_bwd", lstm_kernel.backward_plan)):
-        lib = lstm_kernel._build.load(source)
+    for prefix, plan in (("bilstm_recurrence", lstm_kernel.recurrence_plan),
+                         ("bilstm_train_fwd", lstm_kernel.recurrence_plan),
+                         ("bilstm_train_bwd", lstm_kernel.backward_plan)):
         for h in range(4, lstm_kernel.MAX_HIDDEN + 1, 4):
             want = plan(16, h, 1).smem_bytes
-            assert lstm_kernel.library_smem_bytes(lib, prefix, h) == want, (prefix, h)
+            assert lstm_kernel.library_smem_bytes(prefix, h) == want, (prefix, h)
 
 
 def _gat_inputs(rs, dev, b, n, d, heads, broadcast):
@@ -218,8 +215,7 @@ def test_gat_cycle_plan_shared_memory_is_the_builds(cuda):
             for plan in (gat_kernel.cycle_plan(b, n, d, heads), gat_kernel.card_plan(b, n, d, heads)):
                 assert gat_kernel.library_smem_bytes(b, n, d, heads, plan) == plan.smem_bytes, (n, d, heads, b)
                 assert gat_kernel.active_clusters(b, n, d, heads, plan) >= 1
-    fn = gat_kernel._build.load("gat_cycle.cu").gat_cycle_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
+    fn = _build.entry("gat_cycle_smem_bytes")
     for bad in ((256, 16, 768, 4, 4, 64, 17, 8), (256, 16, 768, 4, 3, 64, 16, 8), (256, 16, 768, 4, 4, 16, 16, 8),
                 (32, 21, 768, 4, 4, 32, 16, 8), (32, 16, 772, 4, 4, 32, 16, 8), (32, 16, 768, 4, 16, 32, 16, 8),
                 (32, 16, 768, 4, 4, 33, 16, 8), (32, 16, 768, 4, 4, 32, 16, 3), (32, 16, 768, 4, 4, 32, 16, 9)):

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from dualvgr_tpu_torch import build_model, train_lib
+from dualvgr_tpu_torch.ops import launch_counts
 from dualvgr_tpu_torch.parallel.dryrun import TINY, tiny_batches
 from dualvgr_tpu_torch.utils import trace
 
@@ -162,11 +163,11 @@ def test_a_replay_counts_the_launches_it_holds(cuda):
     batches = _batches(4)
     counts = []
     for b in batches:
-        before = train_lib._launch_counts()
+        before = launch_counts()
         _graphed(graphed, b)
-        counts.append(tuple(a - c for a, c in zip(train_lib._launch_counts(), before)))
-    before = train_lib._launch_counts()
+        counts.append(tuple(a - c for a, c in zip(launch_counts(), before)))
+    before = launch_counts()
     _eager(eager, batches[0])
-    one_step = tuple(a - c for a, c in zip(train_lib._launch_counts(), before))
+    one_step = tuple(a - c for a, c in zip(launch_counts(), before))
     assert one_step[2] > 0 and one_step[3] > 0  # kernels 3 and 4
     assert counts == [one_step] * 4
