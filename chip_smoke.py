@@ -43,7 +43,7 @@ streaming path):
    staging (fresh numpy arrays, a copy from pageable memory) and as the engine
    runs it now (pinned staging tensors reused, copies that do not block);
    export, export bf16: the serving program exported with torch.export
-   for cuda at max_batch 32 (kernels 1, 2 and, in bf16, 6 as custom ops),
+   for cuda at max_batch 32 (kernels 1, 2 and 7, or 6 in bf16, as custom ops),
    saved as a .dvgr artifact and loaded back; its graph holds one op node
    per launch and none of the plain versions; the 64 requests through a
    BatchingEngine around the loaded program, against the live predict fn
@@ -83,6 +83,15 @@ streaming path):
     the port's probe (``dualvgr_tpu_torch/bench/proj_probe.py``),
     v0-v4, one line, and one call of its v2, whose 2 launches of kernel 5
     (and 2 of the tanh pass) are counted;
+12a. proj_f32: kernel 7 at the train cells' shapes (R*T 65,536, 32,768
+    and 81,920 rows of D 2,048 into 2 x 1,536 columns): its relative
+    Frobenius error against the fp64 product beside torch.baddbmm's in
+    fp32 and in TF32 (at most twice fp32's, TF32's beyond that); ms, the
+    plain version's ms (the two baddbmm products, bias broadcast and flip
+    it replaces), one torch.baddbmm over both directions' columns as the
+    library yardstick, the bound (three products at 495 TFLOP/s TF32),
+    TFLOP/s, the share of the bound, the SM clock and power under load,
+    one launch a call;
 13. cli: the CLIs on an MSRVTT-QA-shaped dataset built in memory at the
     flagship width (384 videos, 805 MB of appearance and 50 MB of motion
     in FeatureStores; 640 training, 256 validation and 300 test
@@ -156,7 +165,8 @@ streaming path):
     (losses 1e-4 relative, module gradient norms 1e-3 at the last step,
     the parameter checksum 1e-4, every parameter within one Adam step a
     step, the argmax >= 0.99), kernels 3 and 4 three times a step and
-    kernels 1 and 2 three and two times a forward on each rank, step ms
+    kernels 1 and 2 three and two times a forward and kernel 7 once a step
+    and once a forward on each rank, step ms
     per rank and the gradient's all-reduce ms; the same steps in bf16
     (kernel 6 once a step, the bf16 limits against the fp32 DP steps);
     ``tensor_parallel: 2`` (with and without ``zero_opt``) on a (1, 2)
@@ -217,7 +227,9 @@ from dualvgr_tpu_torch import train as ttrain
 from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch import predict as tpredict
 from dualvgr_tpu_torch.bench import extraction_bench, proj_probe
-from dualvgr_tpu_torch.bench.proj_kernel_ab import clocks_under_load
+from dualvgr_tpu_torch.bench.proj_kernel_ab import (
+    baddbmm_errors, clocks_under_load, f32_inputs, fp64_product, rel_error,
+)
 from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.bench.zoo_check import TOL as TOL_ZOO
 from dualvgr_tpu_torch.bench.zoo_check import check_zoo
@@ -239,8 +251,8 @@ from dualvgr_tpu_torch.ops.lstm_train_kernel import (
     bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd, bilstm_train_fwd_reference,
 )
 from dualvgr_tpu_torch.ops.proj_kernel import (
-    input_proj_both, input_proj_both_reference, input_proj_one, input_proj_one_reference, tanh_to_bf16,
-    tanh_to_bf16_reference,
+    input_proj_both, input_proj_both_reference, input_proj_f32, input_proj_f32_reference, input_proj_one,
+    input_proj_one_reference, tanh_to_bf16, tanh_to_bf16_reference,
 )
 from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
 from dualvgr_tpu_torch.preprocess.features import (
@@ -265,12 +277,16 @@ TRAIN_PAD, ALPHA, BETA = 6, 1.0, 1e-8
 TRAIN_CFG = "configs/msrvtt_qa_DualVGR_16.yml"
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # H100 SXM published peaks: fp32 outside the tensor cores, dense bf16 on
-# the tensor cores (kernels 5 and 6), and HBM3 bandwidth
+# the tensor cores (kernels 5 and 6), dense TF32 on them (kernel 7's three
+# products), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 BF16 = torch.bfloat16
 PROJ_ROWS = (BATCH * CLIPS, SERVE_BATCH * CLIPS)  # the projection's R at batch 256 and 32
+# kernel 7's R at the train cells (batch 256 x 16, 8 and 20 clips of 16 frames)
+PROJ_F32_ROWS = {"msrvtt-qa": BATCH * 16, "msvd-qa": BATCH * 8, "svqa": BATCH * 20}
 # tolerances, fp32 without TF32:
 #   recurrence: 16-24 steps of tanh/sigmoid-bounded states; only the sum
 #   order of the 384-long products differs -> 1e-4 absolute
@@ -419,11 +435,13 @@ def phase_build():
     say("build", seconds=f"{secs:.2f}", compiled=sorted(reports))
     for src, text in reports.items():
         for line in text.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if "Compiling entry" in line or "Used" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
-    # the projection's shared memory is dynamic, which ptxas does not report
+    # the projections' shared memory is dynamic, which ptxas does not report
     print(f"  input_proj.cu: input_proj_kernel dynamic shared memory {proj_kernel.library_smem_bytes()} bytes",
           flush=True)
+    print(f"  input_proj_f32.cu: input_proj_f32_kernel dynamic shared memory "
+          f"{proj_kernel.f32_library_smem_bytes()} bytes", flush=True)
 
 
 def flagship_inputs(batch, gen):
@@ -584,12 +602,14 @@ def phase_gat(model, app, mot, q, qlen):
     return full, serving
 
 
-# launches per fp32 forward and per bf16 forward (kernels 1-6, then the
-# tanh pass, which kernel 6 runs on fp32 x); a GCN model never runs kernel 2
-EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1)}
-GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0), "bfloat16": (3, 0, 0, 0, 0, 1, 1)}
-# launches per train step: kernel 6 (on bf16 x, no tanh pass) once in bf16
-TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0), "bfloat16": (0, 0, 3, 3, 0, 1, 0)}
+# launches per fp32 forward and per bf16 forward (kernels 1-6, the tanh
+# pass, which kernel 6 runs on fp32 x, then kernel 7, the fp32 appearance
+# projection); a GCN model never runs kernel 2
+EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0, 1), "bfloat16": (3, 2, 0, 0, 0, 1, 1, 0)}
+GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0, 1), "bfloat16": (3, 0, 0, 0, 0, 1, 1, 0)}
+# launches per train step: kernel 7 once in fp32, kernel 6 (on bf16 x, no
+# tanh pass) once in bf16
+TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0, 1), "bfloat16": (0, 0, 3, 3, 0, 1, 0, 0)}
 
 
 def reset_counts():
@@ -643,7 +663,7 @@ def phase_eval(model, app, mot, q, qlen, tag="eval", want=EVAL_LAUNCHES["float32
     flops = flops_per_qa(model)
     say(tag, graph_module=model.visual_input_unit.graph_module, batch=BATCH, logits_max_abs_err=f"{err:.3e}",
         max_abs_logit=f"{scale:.3e}", argmax_agreement=f"{agree:.4f}", aux_max_abs_err=f"{max(aux.values()):.3e}",
-        launches_per_forward=f"bilstm_recurrence:{n_lstm},gat_cycle:{n_gat}",
+        launches_per_forward=f"bilstm_recurrence:{n_lstm},gat_cycle:{n_gat},input_proj_f32:{launches[7]}",
         forward_ms=f"{ms:.3f}", qa_per_s=f"{BATCH / ms * 1e3:.1f}",
         plain_forward_ms=f"{plain_ms:.3f}", plain_qa_per_s=f"{BATCH / plain_ms * 1e3:.1f}",
         gflop_per_qa=f"{flops / 1e9:.4f}", tflop_per_s=f"{flops * BATCH / ms / 1e9:.2f}")
@@ -749,7 +769,7 @@ def serve_through_engine(tag, predict, reqs, direct, compute_dtype, per_batch=No
 
 def fmt_launches(launches):
     return (f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
-            f"tanh_to_bf16:{launches[6]}")
+            f"tanh_to_bf16:{launches[6]},input_proj_f32:{launches[7]}")
 
 
 def phase_serve(model, tag="serve"):
@@ -768,7 +788,7 @@ def phase_serve(model, tag="serve"):
 
 # the exported graph: one op node per launch of a forward, and none of the
 # plain versions' signatures (the graph cycle's LeakyReLU, the LSTM cell's chunk)
-EXPORT_OPS = {"float32": {"bilstm_recurrence": 3, "gat_cycle": 2},
+EXPORT_OPS = {"float32": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_f32": 1},
               "bfloat16": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_both": 1}}
 PLAIN_SIGNATURES = ("aten.leaky_relu.default", "aten.chunk.default")
 
@@ -1122,7 +1142,8 @@ def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
         qa_per_s=f"{BATCH / ms * 1e3:.1f}", losses=",".join(f"{v:.5f}" for v in losses),
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=f"bilstm_train_fwd:{launches[2]},bilstm_train_bwd:{launches[3]},"
-                 f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]}")
+                 f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
+                 f"input_proj_f32:{launches[7]}")
     profile_run(f"{tag} profile", lambda: train_step(state, batch, alpha=ALPHA, beta=BETA))
     return launches, ms
 
@@ -1235,6 +1256,56 @@ def phase_proj():
     check((n5, n_tanh) == (2, 2), f"the probe's v2 launched kernel 5 {n5} and the tanh pass {n_tanh} times, want 2")
     torch.cuda.empty_cache()
     return [c[0] for c in cases], [c[1] for c in cases], [c[2] for c in cases], n5
+
+
+@torch.no_grad()
+def phase_proj_f32():
+    """Kernel 7 at the train cells' shapes (R*T = R x 16 rows, D 2,048, 2 x
+    1,536 columns): its relative error against the fp64 product beside
+    ``torch.baddbmm``'s in fp32 and in TF32 (at most twice the fp32 one;
+    TF32's beyond that), ms, the plain version's ms (the two baddbmm
+    products, the bias broadcast and the flip), the library yardstick (one
+    ``torch.baddbmm`` over both directions' columns, no flip), the bound (the
+    three products at the TF32 tensor-core peak, or the bytes: x, W_hi and
+    W_lo, the bias, the output), TFLOP/s of the product and the share of the
+    bound, one launch a call. Returns the cases, msrvtt-qa's first."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for cell, rows in PROJ_F32_ROWS.items():
+        args = f32_inputs(rows, gen)
+        x, w_f, b_f, w_b, b_b = args
+        want = fp64_product(*args)
+        e_fp32, e_tf32 = baddbmm_errors(args, want)
+        reset_counts()
+        got = input_proj_f32(*args)
+        torch.cuda.synchronize()
+        check(launch_counts()[7] == 1, f"kernel 7 launched {launch_counts()[7]} times for one call")
+        err = rel_error(got, want)
+        abs_err = max((a.double() - b).abs().max().item() for a, b in zip(got, want))
+        check(err <= 2 * e_fp32, f"kernel 7 at {cell}: error {err:.3e} against baddbmm's fp32 {e_fp32:.3e}")
+        check(e_tf32 > 2 * e_fp32, f"baddbmm in TF32 at {cell}: {e_tf32:.3e} within 2x fp32's {e_fp32:.3e}")
+        del got, want
+        r, t, d = x.shape
+        g = w_f.shape[0]
+        w_cat, b_cat = torch.cat([w_f, w_b]).t(), torch.cat([b_f, b_b])
+        ms, plain_ms = time_ms(lambda: input_proj_f32(*args), 10), time_ms(lambda: input_proj_f32_reference(*args), 3)
+        library_ms = time_ms(lambda: torch.baddbmm(b_cat, x.transpose(0, 1), w_cat.expand(t, *w_cat.shape)), 3)
+        product = 2 * r * t * d * 2 * g
+        nbytes = x.numel() * 4 + 2 * (2 * g * d * 4) + 2 * g * 4 + 2 * t * r * g * 4  # x, W_hi, W_lo, bias, out
+        bms, by = bound_ms(3 * product, nbytes, PEAK_TF32_FLOPS)
+        mhz, watts, limit = clocks_under_load(lambda: input_proj_f32(*args))
+        say(f"proj_f32 {cell}", R=r, T=t, D=d, G=g, rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}",
+            baddbmm_fp32_rel_err=f"{e_fp32:.3e}", baddbmm_tf32_rel_err=f"{e_tf32:.3e}",
+            err_over_fp32=f"{err / e_fp32:.2f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+            product_tflops=f"{product / ms / 1e9:.1f}", tensor_core_tflops=f"{3 * product / ms / 1e9:.1f}",
+            share_of_bound=f"{bms / ms:.3f}", sm_mhz=f"{mhz:.0f}", power_w=f"{watts:.1f}", power_limit_w=limit,
+            launches=1)
+        cases.append(dict(shape=f"{cell}_R{r}", err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bms, flops=3 * product, bytes=nbytes))
+        del args, x, w_f, b_f, w_b, b_b, w_cat, b_cat
+        torch.cuda.empty_cache()
+    return cases
 
 
 @torch.no_grad()
@@ -2092,7 +2163,8 @@ def phase_gcn_cli(root, stores):
     predict, _ = load_artifact(path)
     ops = graph_ops(predict.program)
     kernel_ops = {k: n for k, n in ops.items() if k.startswith("dualvgr_torch.")}
-    check(kernel_ops == {"dualvgr_torch.bilstm_recurrence.default": 3}, f"the gcn artifact holds {kernel_ops}")
+    check(kernel_ops == {"dualvgr_torch.bilstm_recurrence.default": 3, "dualvgr_torch.input_proj_f32.default": 1},
+          f"the gcn artifact holds {kernel_ops}")
     check(not ops["aten.chunk.default"], "the gcn artifact holds the plain recurrence")
     reqs = serve_requests()
     direct = direct_answers(build_predict_fn(model, TOP_K), reqs)
@@ -2644,6 +2716,7 @@ def main():
     torch.cuda.empty_cache()
     k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
     torch.cuda.empty_cache()
+    k7_cases = phase_proj_f32()
     extractors = phase_extract()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
@@ -2662,7 +2735,9 @@ def main():
     # per train step. Each row sums its cases' measurements over one fp32
     # forward or step; the bf16-gate shapes are listed beside them. Kernels
     # 5 and 6 are rows per call at R = 4096 (batch 256), R = 512 (batch 32)
-    # listed beside it, bound at the bf16 tensor-core peak.
+    # listed beside it, bound at the bf16 tensor-core peak; kernel 7 a row
+    # per call at msrvtt-qa's train step, the other cells beside it, bound
+    # at the TF32 tensor-core peak (three products).
     eval_shapes = "appearance + question_outputs + question_final"
 
     def cli_launches(i):
@@ -2743,6 +2818,17 @@ def main():
                          per="one call on the R = 4096 x; library: torch.tanh(x, out=bf16); R512 at batch 32",
                          shapes={c["shape"]: {k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                  for c in tanh_cases})),
+        kernel_entry("input_proj_f32", "dualvgr_tpu_torch/csrc/input_proj_f32.cu",
+                     "none: the fp32 projection the JAX package leaves to XLA (dualvgr_tpu/ops/lstm.py:96)",
+                     train_launches[7], k7_cases[:1],
+                     "one call at msrvtt-qa's train step (R*T = 65,536), the other cells beside; bound: the "
+                     "three products at 495 TFLOP/s TF32; plain: the two torch.baddbmm products, bias "
+                     "broadcast and flip it replaces; library: one torch.baddbmm over both directions' "
+                     "columns; launches: phase train's 5 fp32 steps", library=True, side_cases=k7_cases[1:],
+                     peak=PEAK_TF32_FLOPS, launches_eval=serve_launches[7], **ddp_launches_of(7),
+                     **cli_launches(7), **deploy_launches(7), **gcn_launches(7),
+                     launches_predict=predict_launches[7],
+                     rel_err={c["shape"]: c["rel_err"] for c in k7_cases}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,47 @@
-"""A/B timing of build variants of the projection GEMM (``csrc/input_proj.cu``).
+"""A/B timing of build variants of the projection GEMMs: kernel 6 (``csrc/input_proj.cu``, bf16) and kernel 7 (``csrc/input_proj_f32.cu``, 3xTF32).
 
-    python -m dualvgr_tpu_torch.bench.proj_kernel_ab
+    python -m dualvgr_tpu_torch.bench.proj_kernel_ab [--kernel 6|7]
+    python -m dualvgr_tpu_torch.bench.proj_kernel_ab --baseline DIR
 
-Needs one CUDA device and ``nvcc``. Each variant is the committed source
-with another N-tile width (``kBN``: 256, the committed one, or 128, with
-wgmma n128) or another depth of the TMA ring (``kStages``), or, for timing
-only, with the epilogue's loops cut to zero steps (the products without
-their bias, rounding, staging and stores: the epilogue's share). Every variant
-is compiled by ``ops/_build.py::build_variants``, run through
-``input_proj_both`` on bf16 x (the product alone, no tanh pass) at the
-projection's two shapes, R = 4096 (batch 256) and R = 512 (batch 32), with
-the probe's inputs (``bench/proj_probe.py``), checked against the plain
-version (one bf16 step plus 1e-5) where its results are meant to be
-right, and timed with CUDA events, the variants
+Needs one CUDA device and ``nvcc``. Each kernel 6 variant is the committed
+source with another N-tile width (``kBN``: 256, the committed one, or 128,
+with wgmma n128) or another depth of the TMA ring (``kStages``), or, for
+timing only, with the epilogue's loops cut to zero steps (the products
+without their bias, rounding, staging and stores: the epilogue's share).
+They run through ``input_proj_both`` on bf16 x (the product alone, no tanh
+pass) at the projection's two shapes, R = 4096 (batch 256) and R = 512
+(batch 32), with the probe's inputs (``bench/proj_probe.py``), checked
+against the plain version (one bf16 step plus 1e-5) where their results
+are meant to be right. Each kernel 7 variant is its committed source with
+another raster (``kGroupN``: one group of every N tile, kernel 6's order,
+or groups of 4), a 2-stage ring, or, for timing only, without the
+promotion's adds or without the epilogue; they run through
+``input_proj_f32`` at the train cells' R*T (65,536, 32,768 and 81,920 rows
+of D = 2,048 into 2 x 1,536 columns; ``f32_inputs``), each with its error
+against the fp64 product (``rel_error``) beside ``torch.baddbmm``'s in fp32
+and in TF32, and ``baddbmm``'s time (the plain version: the two products,
+the bias broadcast and the flip). Every variant is compiled by
+``ops/_build.py::build_variants`` and timed with CUDA events, the variants
 interleaved (forward order, then reversed) in one process on one card.
-Prints each variant's registers, then per shape its two times in ms and
-the TFLOP/s of the better one, and the card's SM clock and power draw
-(``nvidia-smi``, sampled every 50 ms) while the committed variant runs
-back to back for about a second: the tensor cores' peak scales with the
-clock, 989 TFLOP/s at 1,830 MHz.
+Prints each variant's registers and the compiler's warnings, then per
+shape its two times in ms and the TFLOP/s of the better one, and the
+card's SM clock and power draw (``nvidia-smi``, sampled every 50 ms) while
+the committed variant runs back to back for about a second: the tensor
+cores' peak scales with the clock, 989 TFLOP/s bf16 and 495 TF32 at 1,830
+MHz.
+
+With ``--baseline DIR`` (a checkout of an earlier commit of the repo) it
+times kernel 6 as the product on bf16 x and as the tanh pass and product
+on fp32 x, at R = 4096 and 512, in DIR's package and in this one, in turns
+(baseline, this, this, baseline), one process each
+(``bench/timing.py::against_baseline``), with this tree's copy of the
+measurement in both: DIR's copy of this tool may not have it.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import statistics
 import subprocess
 import tempfile
@@ -32,7 +51,7 @@ from pathlib import Path
 import torch
 
 from dualvgr_tpu_torch.bench import proj_probe
-from dualvgr_tpu_torch.bench.timing import time_ms
+from dualvgr_tpu_torch.bench.timing import against_baseline, time_ms
 from dualvgr_tpu_torch.ops import _build
 from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_both_reference
 
@@ -62,15 +81,128 @@ def variant_source(text: str, bn: int, stages: int, cut: bool) -> str:
     return text
 
 
+K7_SOURCE = "input_proj_f32.cu"
+K7_RING, K7_GROUP = "constexpr int kStages = 3;", "constexpr int kGroupN = 8;"
+K7_PROMOTION_CUT = ("for (int i = 0; i < kAcc; ++i) acc[i] += d[i];", "for (int i = 0; i < 0; ++i) acc[i] += d[i];")
+# name -> ({committed line: variant line}, timing only)
+K7_VARIANTS = {
+    "committed": ({}, False),
+    "one_group": ({K7_GROUP: "constexpr int kGroupN = 1 << 20;"}, False),
+    "group4": ({K7_GROUP: "constexpr int kGroupN = 4;"}, False),
+    "2stages": ({K7_RING: "constexpr int kStages = 2;"}, False),
+    "no_promotion": (dict([K7_PROMOTION_CUT]), True),
+    "no_epilogue": (dict(EPILOGUE_CUT), True),
+}
+# the train cells' rows R*T = R x 16 (msrvtt-qa, msvd-qa and its eval, svqa)
+K7_ROWS = (4096, 2048, 5120)
+T, D, G = 16, 2048, 1536
+
+
+def k7_variant_source(text: str, changes: dict) -> str:
+    for old, new in changes.items():
+        if old not in text:
+            raise RuntimeError(f"{K7_SOURCE} has no `{old}`: update the variants")
+        text = text.replace(old, new)
+    return text
+
+
+def report(name, out):
+    regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line]
+    warns = [line.split("ptxas info    : ")[-1].split(" in the function")[0] for line in out.splitlines()
+             if "Performance Loss" in line or "warning" in line.lower()]
+    print(f"[build] {name}: {'; '.join(regs)}" + "".join(f" | {w}" for w in warns), flush=True)
+
+
 def build_variants(workdir: Path) -> dict:
-    """Compile every variant, all ``nvcc``s at once."""
+    """Compile every kernel 6 variant, all ``nvcc``s at once."""
     text = (_build.CSRC / SOURCE).read_text()
     built = _build.build_variants(SOURCE, {name: {SOURCE: variant_source(text, *variant)}
                                            for name, variant in VARIANTS.items()}, workdir)
     for name, (_, out) in built.items():
-        regs = [line.split(":")[-1].strip() for line in out.splitlines() if "Used" in line]
-        print(f"[build] {name}: {'; '.join(regs)}", flush=True)
+        report(name, out)
     return {name: lib for name, (lib, _) in built.items()}
+
+
+def f32_inputs(rows, gen, t=T, d=D, g=G):
+    """Kernel 7's inputs at R = ``rows`` on ``gen``'s device: x = tanh of
+    normal features scaled as dropout at p = 0.15 scales them (the
+    appearance encoder's x), each direction's w_ih xavier-uniform and a
+    bias of N(0, 0.1^2)."""
+    dev = gen.device
+    x = torch.tanh(torch.randn(rows, t, d, device=dev, generator=gen) / 0.85)
+    lim = (6.0 / (d + g)) ** 0.5
+    w_f, w_b = ((torch.rand(g, d, device=dev, generator=gen) * 2 - 1) * lim for _ in range(2))
+    b_f, b_b = (torch.randn(g, device=dev, generator=gen) * 0.1 for _ in range(2))
+    return x, w_f, b_f, w_b, b_b
+
+
+def fp64_product(x, w_f, b_f, w_b, b_b):
+    """Kernel 7's function in fp64: ``(xf, xb_rev)``."""
+    x64 = x.double()
+    xf = torch.einsum("rtd,gd->trg", x64, w_f.double()) + b_f.double()
+    xb = torch.einsum("rtd,gd->trg", x64, w_b.double()) + b_b.double()
+    return xf, xb.flip(0)
+
+
+def rel_error(got, want):
+    """The relative Frobenius error of both directions together."""
+    num = sum(torch.linalg.vector_norm(a.double() - b).item() ** 2 for a, b in zip(got, want))
+    den = sum(torch.linalg.vector_norm(b).item() ** 2 for b in want)
+    return (num / den) ** 0.5
+
+
+def baddbmm_errors(args, want):
+    """``torch.baddbmm``'s (the plain version's) error in fp32 and in TF32."""
+    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32_reference
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        errs = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            errs.append(rel_error(input_proj_f32_reference(*args), want))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    return tuple(errs)
+
+
+def run_k7(workdir: Path):
+    """Kernel 7's variants at the train cells' rows."""
+    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32, input_proj_f32_reference
+
+    workdir.mkdir()
+    text = (_build.CSRC / K7_SOURCE).read_text()
+    built = _build.build_variants(K7_SOURCE, {name: {K7_SOURCE: k7_variant_source(text, changes)}
+                                              for name, (changes, _) in K7_VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
+        report(f"k7 {name}", out)
+    order = list(K7_VARIANTS) + list(K7_VARIANTS)[::-1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows in K7_ROWS:
+        args = f32_inputs(rows, gen)
+        want = fp64_product(*args)
+        e32, e_tf32 = baddbmm_errors(args, want)
+        lib_ms = time_ms(lambda: input_proj_f32_reference(*args), 5)
+        times, errs = {}, {}
+        for name in order:
+            with _build.using(K7_SOURCE, built[name][0]):
+                got = input_proj_f32(*args)
+                torch.cuda.synchronize()
+                if not K7_VARIANTS[name][1]:
+                    errs[name] = rel_error(got, want)
+                del got
+                times.setdefault(name, []).append(time_ms(lambda: input_proj_f32(*args), 10))
+        flops = 2 * rows * T * D * 2 * G
+        with _build.using(K7_SOURCE, built["committed"][0]):
+            mhz, watts, _ = clocks_under_load(lambda: input_proj_f32(*args))
+        print(f"[k7 R{rows}] baddbmm {lib_ms:.3f} ms, error {e32:.3e} (fp32), {e_tf32:.3e} (TF32); committed under "
+              f"load: SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
+        for name, ms in times.items():
+            note = " (timing only)" if K7_VARIANTS[name][1] else f", error {errs[name]:.3e} ({errs[name] / e32:.2f}x)"
+            print(f"[k7 R{rows}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
+                  + f" ms, {flops / min(ms) / 1e9:.1f} TFLOP/s of the product, "
+                  + f"{3 * flops / min(ms) / 1e9:.1f} on the tensor cores{note}", flush=True)
+        del args, want
 
 
 def clocks_under_load(fn, seconds=1.0):
@@ -96,41 +228,76 @@ def clocks_under_load(fn, seconds=1.0):
 
 
 @torch.no_grad()
+def measure():
+    """Kernel 6 at both R, on bf16 x and on fp32 x with its tanh pass, in
+    the package on the path; prints the ``RESULT`` line."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for rows in ROWS:
+        x, w_f, b_f, w_b, b_b = proj_probe.make_inputs(rows, gen)
+        x16 = torch.tanh(x).to(torch.bfloat16)
+        out[f"k6_bf16_x_R{rows}"] = time_ms(lambda: input_proj_both(x16, w_f, b_f, w_b, b_b, fuse_tanh=False), 50)
+        out[f"k6_tanh_R{rows}"] = time_ms(lambda: input_proj_both(x, w_f, b_f, w_b, b_b), 50)
+        del x, x16
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+@torch.no_grad()
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("6", "7"), help="only this kernel's variants")
+    ap.add_argument("--baseline", type=Path, help="a checkout of an earlier commit to time kernel 6 against")
+    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("proj_kernel_ab: no CUDA device")
+    if args.measure:
+        measure()
+        return
     print(torch.cuda.get_device_name(0), flush=True)
+    if args.baseline:
+        against_baseline("dualvgr_tpu_torch.bench.proj_kernel_ab", args.baseline.resolve(), Path(__file__).resolve())
+        return
     _build.BUILD_DIR.mkdir(exist_ok=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build_variants(Path(tmp))
-        order = list(VARIANTS) + list(VARIANTS)[::-1]
-        for rows in ROWS:
-            x, w_f, b_f, w_b, b_b = proj_probe.make_inputs(rows, gen)
-            x16 = torch.tanh(x).to(torch.bfloat16)
-            del x
-            args = (x16, w_f, b_f, w_b, b_b)
-            want = input_proj_both_reference(*args, fuse_tanh=False)
-            times = {}
-            for name in order:
-                with _build.using(SOURCE, libs[name]):
-                    got = input_proj_both(*args, fuse_tanh=False)
-                    torch.cuda.synchronize()
-                    for a, b in zip(got, want):
-                        steps, _, ok = proj_probe.compare(a, b)
-                        if not ok and not VARIANTS[name][2]:
-                            raise RuntimeError(f"{name} at R={rows}: {steps:.2f} bf16 steps from the plain version")
-                    del got
-                    times.setdefault(name, []).append(time_ms(lambda: input_proj_both(*args, fuse_tanh=False), 20))
-            flops = 2 * x16.numel() * 2 * w_f.shape[0]
-            with _build.using(SOURCE, libs["committed"]):
-                mhz, watts, _ = clocks_under_load(lambda: input_proj_both(*args, fuse_tanh=False))
-            print(f"[R{rows}] committed under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
-            for name, ms in times.items():
-                note = " (timing only: epilogue cut)" if VARIANTS[name][2] else ""
-                print(f"[R{rows}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
-                      + f" ms, {flops / min(ms) / 1e9:.1f} TFLOP/s{note}", flush=True)
-            del args, want, x16
+        if args.kernel != "6":
+            run_k7(Path(tmp) / "k7")
+        if args.kernel != "7":
+            run_k6(Path(tmp) / "k6")
+
+
+def run_k6(workdir: Path):
+    """Kernel 6's variants at both R."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    workdir.mkdir()
+    libs = build_variants(workdir)
+    order = list(VARIANTS) + list(VARIANTS)[::-1]
+    for rows in ROWS:
+        x, w_f, b_f, w_b, b_b = proj_probe.make_inputs(rows, gen)
+        x16 = torch.tanh(x).to(torch.bfloat16)
+        del x
+        args = (x16, w_f, b_f, w_b, b_b)
+        want = input_proj_both_reference(*args, fuse_tanh=False)
+        times = {}
+        for name in order:
+            with _build.using(SOURCE, libs[name]):
+                got = input_proj_both(*args, fuse_tanh=False)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    steps, _, ok = proj_probe.compare(a, b)
+                    if not ok and not VARIANTS[name][2]:
+                        raise RuntimeError(f"{name} at R={rows}: {steps:.2f} bf16 steps from the plain version")
+                del got
+                times.setdefault(name, []).append(time_ms(lambda: input_proj_both(*args, fuse_tanh=False), 20))
+        flops = 2 * x16.numel() * 2 * w_f.shape[0]
+        with _build.using(SOURCE, libs["committed"]):
+            mhz, watts, _ = clocks_under_load(lambda: input_proj_both(*args, fuse_tanh=False))
+        print(f"[R{rows}] committed under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
+        for name, ms in times.items():
+            note = " (timing only: epilogue cut)" if VARIANTS[name][2] else ""
+            print(f"[R{rows}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
+                  + f" ms, {flops / min(ms) / 1e9:.1f} TFLOP/s{note}", flush=True)
+        del args, want, x16
 
 
 if __name__ == "__main__":

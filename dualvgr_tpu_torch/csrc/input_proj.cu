@@ -28,6 +28,8 @@
 // and W (N = ndir * G, K) is K-major, so C = A B^T is the "TN" product that
 // wgmma reads as it lies; the time-major layout and the reversal live only
 // in the epilogue, which maps row m = r*T + t to output row t' * R + r.
+// Its barriers, copies, matrix descriptor and tensor maps are in
+// tma_gemm.cuh, shared with kernel 7 (input_proj_f32.cu).
 // - A persistent grid: one 384-thread block per SM walks the 128 x 256
 //   output tiles, N tiles fastest, so the 132 tiles in flight share about
 //   11 row panels of A and all of W (12.6 MB at the flagship) in the 50 MB
@@ -63,7 +65,11 @@
 
 #include <cstdint>
 
+#include "tma_gemm.cuh"
+
 namespace {
+
+using namespace tma_gemm;
 
 // the tile and the ring; bench/proj_kernel_ab.py times other choices
 constexpr int kBM = 128, kBN = 256, kBK = 64;  // kBK bf16 = 128 bytes: one swizzle row
@@ -84,74 +90,6 @@ constexpr int kTanhThreads = 256;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-// Returns once the barrier's phase parity differs from ``parity``. A wait
-// of more than 2^34 cycles (about 10 s) can only be a fault in the
-// pipeline: it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-// ``bytes`` (a multiple of 16) from shared to global memory, asynchronously,
-// in this thread's current bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(smem_u32(src)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// a (kBK x rows) box of a 2-D bf16 tensor map at (k, row) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int k, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(row)
-      : "memory");
-}
-
-// wgmma matrix descriptor of a K-major tile with 128-byte swizzle: 8-row
-// groups 1024 bytes apart (SBO); the leading offset is unused in this mode
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-template <int kN>
-__device__ __forceinline__ void fence_operands(float (&d)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 256, fp32) += A (64 x 16) B^T (256 x 16), both from shared memory
@@ -347,50 +285,6 @@ tanh_to_bf16_kernel(const float4* __restrict__ x, uint4* __restrict__ out, long 
   }
 }
 
-// cuTensorMapEncodeTiled, taken from the driver at run time, so that the
-// library needs no link to libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (rows, cols) row-major bf16 matrix read in (box_rows x kBK) boxes, 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return n;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 
 // Plain C entries for ctypes. Each returns the cudaError_t of the launch
@@ -410,7 +304,9 @@ extern "C" int input_proj_launch(const void* x, const void* w, const void* bias,
     return (int)cudaErrorMisalignedAddress;
   const int M = R * T, N = ndir * G;
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, x, M, D, kBM) || !make_map(&map_b, w, N, D, kBN)) return (int)cudaErrorInvalidValue;
+  if (!make_map(&map_a, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, D, kBK, kBM) ||
+      !make_map(&map_b, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, N, D, kBK, kBN))
+    return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err =

@@ -5,8 +5,9 @@ serving program (eval forward, softmax, top-k over fixed shapes, weights
 embedded) is exported once with ``torch.export``, and a serving host loads
 the file and runs it without the model code's Python, the checkpoint or
 the config. The kernels on the path (kernel 1, the BiLSTM recurrence;
-kernel 2, the graph cycle; kernel 6 with its tanh pass under
-``compute_dtype: bfloat16``) are torch custom ops
+kernel 2, the graph cycle; the appearance projection, kernel 7 in fp32 or
+kernel 6 with its tanh pass under ``compute_dtype: bfloat16``) are torch
+custom ops
 (``torch.ops.dualvgr_torch.*``, registered by ``ops/lstm_kernel.py``,
 ``ops/gat_kernel.py`` and ``ops/proj_kernel.py``), so the exported graph
 holds one node for each launch, and a loaded program on the card launches

@@ -313,15 +313,16 @@ def kernel_dim_limits(*, vision_dim: int = 2048, module_dim: int = 768, num_of_n
     cycle (kernel 2) runs only with the GAT module and graph_layers == 1, so
     only there do its limits apply; the projection (kernel 6) and its tanh
     pass only under compute_dtype "bfloat16", on the appearance features
-    (D = vision_dim) into 4H gate columns. Each kernel module words its
-    own limits; the model's names for the dims follow in parentheses.
+    (D = vision_dim) into 4H gate columns; the fp32 projection (kernel 7)
+    on the same widths under "float32". Each kernel module words its own
+    limits; the model's names for the dims follow in parentheses.
     """
     hidden = module_dim // 2
     found = [(lstm_kernel.hidden_limit(hidden), "H = module_dim // 2")]
     if graph_module == "GAT" and graph_layers == 1:
         found += [(msg, "N = num_of_nodes, D = module_dim") for msg in gat_kernel.dim_limits(num_of_nodes, module_dim)]
-    if stream_dtype_of(compute_dtype) is not None:
-        found.append((proj_kernel.dim_limit(vision_dim, 4 * hidden), "D = vision_dim, 4H = 4 * (module_dim // 2)"))
+    limit = proj_kernel.f32_dim_limit if stream_dtype_of(compute_dtype) is None else proj_kernel.dim_limit
+    found.append((limit(vision_dim, 4 * hidden), "D = vision_dim, 4H = 4 * (module_dim // 2)"))
     return [f"{msg} ({names})" for msg, names in found if msg is not None]
 
 

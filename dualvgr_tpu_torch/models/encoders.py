@@ -22,7 +22,12 @@ trainable pair (``ops/lstm_train.py``): the appearance encoder through
 nothing trainable upstream), the question encoders through
 ``bilstm_trainable``.
 
-Under ``compute_dtype: bfloat16`` every BiLSTM streams its input projection
+In fp32 with ``use_kernel`` the appearance encoder's projection is one
+launch of kernel 7 for both directions, in training
+(``ops/lstm_train.py``) and in eval (``ops/lstm.py::appearance_final_f32``,
+where no tensor-parallel projection is set); the question encoders keep
+the plain products. Under
+``compute_dtype: bfloat16`` every BiLSTM streams its input projection
 and rounds its gates to bf16 (``ops/lstm.py``); in eval with ``use_kernel``
 the appearance encoder's projection is one launch of kernel 6 with tanh
 fused, from the raw clips (``ops/lstm.py::appearance_final_bf16``).
@@ -42,7 +47,7 @@ from torch import nn
 
 from dualvgr_tpu_torch.models.init import flax_init_
 from dualvgr_tpu_torch.ops.dropout import Dropout
-from dualvgr_tpu_torch.ops.lstm import LSTMParams, appearance_final_bf16, bilstm
+from dualvgr_tpu_torch.ops.lstm import LSTMParams, appearance_final_bf16, appearance_final_f32, bilstm
 from dualvgr_tpu_torch.ops.precision import SLinear
 
 
@@ -127,9 +132,12 @@ class AppearanceEncoder(nn.Module):
         # each clip is one full-length sequence of F frames
         x = self.drop_clips(clips, generator).reshape(b * c, f, d)
         enc = self.encoder
-        if use_kernel and enc.stream_dtype is not None and not self.training:
+        kernel_eval = use_kernel and not self.training
+        if kernel_eval and enc.stream_dtype is not None:
             # kernel 6 applies the tanh itself
             final = appearance_final_bf16(enc._params(""), enc._params("_reverse"), x.contiguous())
+        elif kernel_eval and enc.input_proj is None:
+            final = appearance_final_f32(enc._params(""), enc._params("_reverse"), torch.tanh(x).contiguous())
         else:
             _, final = enc(torch.tanh(x), with_outputs=False, use_kernel=use_kernel, drop_input_grad=True)
         return self.drop_final(final, generator).view(b, c, self.module_dim)

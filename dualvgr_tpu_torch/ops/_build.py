@@ -67,6 +67,10 @@ ENTRIES = {
         "input_proj_smem_bytes": (_I, ()),
         "tanh_to_bf16_launch": (_I, (_P, _P, _LL, _P)),
     },
+    "input_proj_f32.cu": {
+        "input_proj_f32_launch": (_I, (_P,) * 8 + (_I,) * 4 + (_P,)),
+        "input_proj_f32_smem_bytes": (_I, ()),
+    },
 }
 SOURCES = tuple(ENTRIES)
 _SOURCE_OF = {name: source for source, entries in ENTRIES.items() for name in entries}

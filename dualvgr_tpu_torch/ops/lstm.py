@@ -9,10 +9,14 @@ torch's (i, f, g, o), and each direction has torch's two bias vectors,
 summed into the projection.
 
 The input projection ``x @ w_ih + (b_ih + b_hh)`` for all time steps is one
-batched product per direction left to ``torch.baddbmm``, as the JAX package
-leaves it to XLA outside any kernel; only the recurrence is a kernel
+batched product per direction left to ``torch.baddbmm``
+(``ops/proj_kernel.py::input_proj``), as the JAX package leaves it to XLA
+outside any kernel; the recurrence is a kernel
 (``dualvgr_tpu_torch.ops.lstm_kernel`` for eval, the trainable pair of
-``dualvgr_tpu_torch.ops.lstm_train`` for training).
+``dualvgr_tpu_torch.ops.lstm_train`` for training). The appearance
+encoder's projection is a kernel too on the kernel path: in fp32 one
+launch of kernel 7 gives both directions' gates (``appearance_final_f32``
+in eval, ``ops/lstm_train.py`` in training).
 
 Under a stream dtype (``compute_dtype: bfloat16``, the JAX package's
 ``ops/lstm.py:82-185`` and ``models/encoders.py:78-137``) the projection is
@@ -31,9 +35,9 @@ from typing import NamedTuple
 import torch
 
 from dualvgr_tpu_torch.ops.lstm_kernel import _lstm_step, bilstm_recurrence, bilstm_recurrence_reference
-from dualvgr_tpu_torch.ops.lstm_train import appearance_bilstm_train, bilstm_trainable, input_proj
+from dualvgr_tpu_torch.ops.lstm_train import appearance_bilstm_train, bilstm_trainable
 from dualvgr_tpu_torch.ops.precision import stream_roundtrip
-from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both
+from dualvgr_tpu_torch.ops.proj_kernel import input_proj, input_proj_both, input_proj_f32
 
 
 class LSTMParams(NamedTuple):
@@ -48,7 +52,7 @@ class LSTMParams(NamedTuple):
 
 def time_major_input_proj(x, params: LSTMParams, *, reverse: bool = False, stream_dtype=None):
     """(B, T, D) -> (T, B, 4H) projection ``x @ w_ih^T + b_ih + b_hh``
-    (``ops/lstm_train.py::input_proj``); with ``reverse`` flipped in time,
+    (``ops/proj_kernel.py::input_proj``); with ``reverse`` flipped in time,
     with ``stream_dtype`` streamed. fp32 out."""
     return input_proj(x, params.w_ih, params.b_ih + params.b_hh, reverse=reverse, stream_dtype=stream_dtype)
 
@@ -62,6 +66,15 @@ def appearance_final_bf16(fwd: LSTMParams, bwd: LSTMParams, x):
     xf, xb = input_proj_both(x, fwd.w_ih, fwd.b_ih + fwd.b_hh, bwd.w_ih, bwd.b_ih + bwd.b_hh, fuse_tanh=True)
     final = bilstm_recurrence(xf, xb, fwd.w_hh.t().contiguous(), bwd.w_hh.t().contiguous())
     return final.float()
+
+
+def appearance_final_f32(fwd: LSTMParams, bwd: LSTMParams, x):
+    """Final states (R, 2H), fp32, of the BiLSTM over fp32 x (R, T, D),
+    full-length: the eval kernel routing in fp32. One launch of kernel 7
+    gives both directions' fp32 gates, which kernel 1 reads. Records
+    nothing for autograd (eval only)."""
+    xf, xb = input_proj_f32(x, fwd.w_ih, fwd.b_ih + fwd.b_hh, bwd.w_ih, bwd.b_ih + bwd.b_hh)
+    return bilstm_recurrence(xf, xb, fwd.w_hh.t().contiguous(), bwd.w_hh.t().contiguous())
 
 
 def bilstm(

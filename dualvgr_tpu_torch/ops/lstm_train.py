@@ -12,7 +12,8 @@ as the JAX package leaves it to XLA (``lstm_pallas_train.py:274-277``).
 
 * ``BiLSTMTrainable`` (``bilstm_trainable``), the twin of
   ``bilstm_trainable``: the full VJP over the gate inputs and W_hh. The input
-  projection stays outside (``ops/lstm.py::time_major_input_proj``), so
+  projection stays outside (``ops/lstm.py::time_major_input_proj`` on
+  ``ops/proj_kernel.py::input_proj``), so
   autograd carries dxproj on to W_ih, the biases and the word embeddings.
 * ``AppearanceBiLSTMTrain`` (``appearance_bilstm_train``), the twin of
   ``appearance_bilstm_train``: the input projection sits inside, and the
@@ -20,7 +21,10 @@ as the JAX package leaves it to XLA (``lstm_pallas_train.py:274-277``).
   It gives x no gradient by design, which is sound only when nothing
   trainable sits upstream of x (the appearance encoder's x is
   tanh(dropout(raw features))); the JAX op stop_gradient()s x, and this one
-  refuses an x that requires grad. Under a stream dtype
+  refuses an x that requires grad. In fp32 the forward projection is one
+  launch of kernel 7 (``ops/proj_kernel.py::input_proj_f32``, 3xTF32 on
+  the tensor cores; on a CPU tensor its plain version, the two
+  ``input_proj`` products). Under a stream dtype
   (``lstm_pallas_train.py:376-475``) the forward projection is one launch
   of kernel 6 (``ops/proj_kernel.py::input_proj_both``, no tanh) on the
   bf16-rounded x, whose bf16 gates kernel 3 reads; x is saved in bf16 for
@@ -39,26 +43,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
-from dualvgr_tpu_torch.ops.precision import mm_f32, streamed_matmul
-from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both
-
-
-def input_proj(x, w_ih, b, *, reverse: bool = False, stream_dtype=None):
-    """(B, T, D) -> (T, B, 4H) projection ``x @ w_ih^T + b``, w_ih (4H, D).
-
-    One product batched over time, read from x through a transposed view (no
-    copy of x) and written time-major; with ``reverse`` flipped in time, the
-    layout the backward direction's recurrence takes. With ``stream_dtype``
-    the product is streamed (``ops/precision.py``: rounded operands, fp32
-    sum and output, exact-f32 gradients) and the fp32 bias added after it;
-    the result stays fp32.
-    """
-    if stream_dtype is None:
-        w = w_ih.t()
-        out = torch.baddbmm(b, x.transpose(0, 1), w.expand(x.shape[1], *w.shape))
-    else:
-        out = streamed_matmul(x.transpose(0, 1), w_ih.t(), stream_dtype) + b
-    return out.flip(0) if reverse else out
+from dualvgr_tpu_torch.ops.precision import mm_f32
+from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_f32
 
 
 def recurrent_weight_grads(hprev, dxf, dxb):
@@ -112,8 +98,8 @@ class AppearanceBiLSTMTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_ih_f, b_f, w_hh_f, w_ih_b, b_b, w_hh_b, stream_dtype):
         if stream_dtype is None:
-            xf = input_proj(x, w_ih_f, b_f)
-            xb = input_proj(x, w_ih_b, b_b, reverse=True)
+            # both directions' fp32 gates from one launch of kernel 7
+            xf, xb = input_proj_f32(x.contiguous(), w_ih_f, b_f, w_ih_b, b_b)
         else:
             # both directions' gates from one launch of kernel 6 on the
             # rounded x, rounded once after the fp32 bias (the JAX _proj)

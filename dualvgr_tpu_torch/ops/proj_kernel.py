@@ -1,8 +1,10 @@
-"""The bf16 input projection of a BiLSTM: hand-written CUDA kernels and plain versions.
+"""The input projection of a BiLSTM: hand-written CUDA kernels and plain versions.
 
-Three wrappers over one CUDA source (``csrc/input_proj.cu``): two are the
-port's counterparts of the JAX package's two probe kernels, the third is
-the tanh pass that both run on fp32 x before their product:
+``input_proj`` is the plain projection ``x @ w_ih^T + b``, time-major, of
+one direction. Four wrappers over two CUDA sources: three over
+``csrc/input_proj.cu`` (bf16), the port's counterparts of the JAX
+package's two probe kernels and the tanh pass that both run on fp32 x
+before their product, and one over ``csrc/input_proj_f32.cu`` (fp32):
 
 * ``input_proj_one`` replaces ``benchmarks/proj_probe.py::make_pallas_proj``:
   one direction of fp32 x, tanh applied, ``(T, R, 4H)`` bf16, optionally
@@ -16,8 +18,15 @@ the tanh pass that both run on fp32 x before their product:
   bf16 scratch that the product reads. The TPU kernels apply tanh to each
   x tile inside the kernel (``benchmarks/proj_probe.py:79, 124``); a GEMM
   tiled over 4H would repeat that once per column tile.
+* ``input_proj_f32`` (kernel 7) replaces no TPU kernel: both directions'
+  fp32 gates ``x @ w_ih^T + b`` from one pass over fp32 x, in
+  ``input_proj_both``'s layout, as 3xTF32 on the tensor cores; its plain
+  version is the two ``input_proj`` calls it replaces, bit for bit. The
+  appearance encoder takes it on the kernel path in fp32, in training
+  (``ops/lstm_train.py``) and in eval (``ops/lstm.py::appearance_final_f32``);
+  it counts the rows it projects in the tracer's ``proj.tc_f32_rows``.
 
-The function, for x (R, T, D) and a direction's torch-layout ``w_ih``
+The bf16 function, for x (R, T, D) and a direction's torch-layout ``w_ih``
 (4H, D) and fp32 bias b (4H,): ``bf16(bf16(f(x[:, t])) @ bf16(w_ih)^T + b)``,
 accumulated in fp32 and rounded once, after the bias. That is the
 appearance encoder's projection under ``compute_dtype: bfloat16`` in the
@@ -26,19 +35,22 @@ JAX package (``models/encoders.py:102-103, 125-127``;
 its output before the bias, a second rounding. The wrappers round w_ih to
 bf16 once per call.
 
-``input_proj_both``, which the eval path runs, calls the torch custom op
-``dualvgr_torch::input_proj_both`` (the tanh pass inside it), so that
-``torch.export`` keeps it as one node. On a CPU tensor each wrapper runs
-its ``*_reference``, the same function
+``input_proj_both`` and ``input_proj_f32``, which the eval path runs, call
+the torch custom ops ``dualvgr_torch::input_proj_both`` (the tanh pass
+inside it) and ``dualvgr_torch::input_proj_f32``, so that ``torch.export``
+keeps each as one node. On a CPU tensor each wrapper runs its
+``*_reference``, the same function
 step by step in PyTorch (tanh rounded to bf16, rounded operands upcast, an
 fp32 product, the bias, one rounding); on a CUDA tensor it launches the
 kernel through the shared launch (``ops/launch.py``) or raises. ``launches`` on each wrapper counts its own kernel's
-launches: one per call of ``input_proj_one`` and ``input_proj_both``, and
-``tanh_to_bf16`` counts each tanh pass, the two projections' included.
+launches: one per call of ``input_proj_one``, ``input_proj_both`` and
+``input_proj_f32`` (whose entry runs its weights' split pass and then the
+product), and ``tanh_to_bf16`` counts each tanh pass, the two projections' included.
 They record nothing for autograd: the training path
-(``ops/lstm_train.py``) calls kernel 6 inside its
-``torch.autograd.Function``. ``dim_limit`` says which widths the product
-cannot take.
+(``ops/lstm_train.py``) calls kernels 6 and 7 inside its
+``torch.autograd.Function``. ``dim_limit`` and ``f32_dim_limit`` say which
+widths the products cannot take; ``models/dualvgr.py::kernel_dim_limits``
+refuses a model with such widths on the card before any forward.
 """
 
 from __future__ import annotations
@@ -48,6 +60,26 @@ import torch
 from dualvgr_tpu_torch.ops.launch import (
     OPS_NAMESPACE, call, check, check_aligned, dispatch, launch, refuse_autograd,
 )
+from dualvgr_tpu_torch.ops.precision import streamed_matmul
+from dualvgr_tpu_torch.utils.trace import count
+
+
+def input_proj(x, w_ih, b, *, reverse: bool = False, stream_dtype=None):
+    """(B, T, D) -> (T, B, 4H) projection ``x @ w_ih^T + b``, w_ih (4H, D).
+
+    One product batched over time, read from x through a transposed view (no
+    copy of x) and written time-major; with ``reverse`` flipped in time, the
+    layout the backward direction's recurrence takes. With ``stream_dtype``
+    the product is streamed (``ops/precision.py``: rounded operands, fp32
+    sum and output, exact-f32 gradients) and the fp32 bias added after it;
+    the result stays fp32.
+    """
+    if stream_dtype is None:
+        w = w_ih.t()
+        out = torch.baddbmm(b, x.transpose(0, 1), w.expand(x.shape[1], *w.shape))
+    else:
+        out = streamed_matmul(x.transpose(0, 1), w_ih.t(), stream_dtype) + b
+    return out.flip(0) if reverse else out
 
 
 def tanh_to_bf16_reference(x):
@@ -75,11 +107,25 @@ def input_proj_both_reference(x, w_f, b_f, w_b, b_b, *, fuse_tanh: bool = True):
     return _proj_reference(a16, w_f, b_f, False), _proj_reference(a16, w_b, b_b, True)
 
 
+def input_proj_f32_reference(x, w_f, b_f, w_b, b_b):
+    """Plain PyTorch version of kernel 7: ``(xf, xb_rev)``, the two fp32
+    ``input_proj`` products it replaces."""
+    return input_proj(x, w_f, b_f), input_proj(x, w_b, b_b, reverse=True)
+
+
 def dim_limit(d, g):
-    """Why the product cannot take x of width D = ``d`` into ``g`` = 4H
+    """Why the bf16 product cannot take x of width D = ``d`` into ``g`` = 4H
     gate columns, or None if it can."""
     if d % 8 or g % 8:
         return f"the bf16 projection kernel needs D % 8 == 0 and 4H % 8 == 0, got D={d}, 4H={g}"
+    return None
+
+
+def f32_dim_limit(d, g):
+    """Why kernel 7 cannot take x of width D = ``d`` into ``g`` = 4H gate
+    columns (16-byte rows and column groups), or None if it can."""
+    if d <= 0 or g <= 0 or d % 4 or g % 4:
+        return f"the fp32 projection kernel needs D % 4 == 0 and 4H % 4 == 0, got D={d}, 4H={g}"
     return None
 
 
@@ -88,14 +134,19 @@ def library_smem_bytes():
     return call("input_proj_smem_bytes", None)
 
 
-def _check_inputs(x, weights, biases, x_dtype):
+def f32_library_smem_bytes():
+    """The dynamic shared memory of kernel 7's CTA, the build's own."""
+    return call("input_proj_f32_smem_bytes", None)
+
+
+def _check_inputs(x, weights, biases, x_dtype, limit=dim_limit):
     """The kernels' contract on x (R, T, D) and each direction's w_ih (4H,
-    D) and b (4H,); returns (R, T, D, 4H)."""
+    D) and b (4H,), the widths within ``limit``; returns (R, T, D, 4H)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (R, T, D), got {tuple(x.shape)}")
     r, t, d = x.shape
     g = weights[0].shape[0]
-    if (msg := dim_limit(d, g)) is not None:
+    if (msg := limit(d, g)) is not None:
         raise ValueError(msg)
     check("x", x, (r, t, d), x.device, x_dtype)
     check_aligned("x", x)
@@ -185,6 +236,49 @@ def _both_cuda(x, w_f, b_f, w_b, b_b, fuse_tanh):
     return xf, xb
 
 
+def input_proj_f32(x, w_f, b_f, w_b, b_b):
+    """Kernel 7: both directions' fp32 gates from one pass over fp32 x (R,
+    T, D), w_* (4H, D), b_* (4H,) combined biases.
+
+    Returns ``(xf, xb_rev)``, fp32 (T, R, 4H) each, ``xb_rev`` time-reversed.
+    The work is the custom op ``dualvgr_torch::input_proj_f32``, which
+    ``torch.export`` keeps as one node of the graph.
+    """
+    refuse_autograd("input_proj_f32", x, w_f, b_f, w_b, b_b)
+    return dispatch("input_proj_f32", x, _f32_op, _f32_op)(x, w_f, b_f, w_b, b_b)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::input_proj_f32", mutates_args=(), device_types="cpu")
+def _f32_op(x: torch.Tensor, w_f: torch.Tensor, b_f: torch.Tensor, w_b: torch.Tensor,
+            b_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version."""
+    return input_proj_f32_reference(x, w_f, b_f, w_b, b_b)
+
+
+@_f32_op.register_fake
+def _(x, w_f, b_f, w_b, b_b):
+    r, t, _ = x.shape
+    return tuple(x.new_empty((t, r, w_f.shape[0])) for _ in range(2))
+
+
+@_f32_op.register_kernel("cuda")
+def _f32_cuda(x, w_f, b_f, w_b, b_b):
+    """The op on CUDA tensors: one launch of ``csrc/input_proj_f32.cu``,
+    which splits the weights into their TF32 halves (into a scratch made
+    here) and runs the product; counts R*T in ``proj.tc_f32_rows``."""
+    dev = x.device
+    r, t, d, g = _check_inputs(x, (w_f, w_b), (b_f, b_b), torch.float32, f32_dim_limit)
+    for name, a in (("w_f", w_f), ("w_b", w_b), ("b_f", b_f), ("b_b", b_b)):
+        check_aligned(name, a)
+    split = torch.empty((2, 2 * g, d), device=dev, dtype=torch.float32)
+    xf, xb = (torch.empty((t, r, g), device=dev, dtype=torch.float32) for _ in range(2))
+    launch(input_proj_f32, "input_proj_f32_launch", dev, x.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
+           b_f.data_ptr(), b_b.data_ptr(), split.data_ptr(), xf.data_ptr(), xb.data_ptr(), r, t, d, g)
+    count("proj.tc_f32_rows", r * t)
+    return xf, xb
+
+
 tanh_to_bf16.launches = 0
 input_proj_one.launches = 0
 input_proj_both.launches = 0
+input_proj_f32.launches = 0

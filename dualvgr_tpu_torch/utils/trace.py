@@ -64,7 +64,10 @@ graph took); ``model.unit_cycles`` (the unit cycles the model's forwards
 ran; a replayed step runs them without the host, so counts none);
 ``lstm.gate_acts_bytes`` (``ops/lstm_train_kernel.py::bilstm_train_fwd``:
 the bytes of gate activations kernel 3 keeps for kernel 4, a launch on the
-card; eager and captured steps only, as ``model.unit_cycles``).
+card; eager and captured steps only, as ``model.unit_cycles``);
+``proj.tc_f32_rows`` (``ops/proj_kernel.py::input_proj_f32``: the rows R*T
+that kernel 7 projects on the tensor cores, a launch on the card; eager
+and captured steps and every eval forward).
 """
 
 from __future__ import annotations

@@ -92,6 +92,7 @@ def test_backward_plan_refuses_what_the_kernel_does_not_take(hidden):
     (dict(module_dim=1024, num_of_nodes=24, graph_layers=2), ["BiLSTM"]),
     (dict(vision_dim=2044, compute_dtype="bfloat16"), ["projection"]),
     (dict(vision_dim=2044), []),
+    (dict(vision_dim=2046), ["fp32 projection"]),
 ])
 def test_kernel_dim_limits_names_each_broken_limit(dims, names):
     got = kernel_dim_limits(**dims)

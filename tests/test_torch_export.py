@@ -13,11 +13,12 @@ fp32 program: with delta = 5e-2 x max|logit|, each score within a factor
 exp(+-2 delta) of the fp32 probability of its id, and a top-1 id differing
 only where the fp32 top-2 logit margin is within 2 delta. The port's
 graph must hold the kernels' custom ops (three ``bilstm_recurrence``, two
-``gat_cycle``, and one ``input_proj_both`` under bf16) and no plain
+``gat_cycle``, and one ``input_proj_f32`` in fp32 or ``input_proj_both``
+under bf16) and no plain
 version of them: no LeakyReLU (the graph cycle's attention) and no
 ``chunk`` (the LSTM cell), so the plain path is not baked in. A GCN model's
 artifact (``graph_module: GCN``) holds the three ``bilstm_recurrence``
-nodes and no ``gat_cycle``, and matches the JAX package's GCN artifact.
+nodes, the ``input_proj_f32`` and no ``gat_cycle``, and matches the JAX package's GCN artifact.
 """
 
 import numpy as np
@@ -39,9 +40,9 @@ KW = dict(
 )
 B, C, F, T, K = 4, 4, 3, 5, 3
 TOL_BF16_LOGITS = 5e-2
-KERNEL_OPS = {"float32": {"bilstm_recurrence": 3, "gat_cycle": 2},
+KERNEL_OPS = {"float32": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_f32": 1},
               "bfloat16": {"bilstm_recurrence": 3, "gat_cycle": 2, "input_proj_both": 1},
-              "GCN": {"bilstm_recurrence": 3}}
+              "GCN": {"bilstm_recurrence": 3, "input_proj_f32": 1}}
 PLAIN_SIGNATURES = ("aten.leaky_relu.default", "aten.chunk.default")
 
 
@@ -203,6 +204,7 @@ def _opcheck_cases():
         "proj_both_tanh": ("input_proj_both", (t(3, 5, 16), t(32, 16), t(32), t(32, 16), t(32), True)),
         "proj_both_bf16_x": ("input_proj_both", (t(3, 5, 16).bfloat16(), t(32, 16), t(32), t(32, 16), t(32),
                                                  False)),
+        "proj_f32": ("input_proj_f32", (t(3, 5, 16), t(32, 16), t(32), t(32, 16), t(32))),
     }
 
 
@@ -219,7 +221,8 @@ def test_custom_ops_pass_opcheck(case):
     ref = {"bilstm_recurrence": lambda *a: texport.lstm_kernel.bilstm_recurrence_reference(
                *a[:5], with_outputs=a[5]),
            "gat_cycle": texport.gat_kernel.gat_cycle_reference,
-           "input_proj_both": lambda *a: texport.proj_kernel.input_proj_both_reference(*a[:5], fuse_tanh=a[5])}
+           "input_proj_both": lambda *a: texport.proj_kernel.input_proj_both_reference(*a[:5], fuse_tanh=a[5]),
+           "input_proj_f32": texport.proj_kernel.input_proj_f32_reference}
     want = ref[name](*args)
     got = op(*args)
     want = want if isinstance(want, tuple) else (want,)

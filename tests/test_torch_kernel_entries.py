@@ -139,6 +139,11 @@ def call_proj_both(gen):
     proj_kernel._both_cuda(x, w, b, w, b, True)
 
 
+def call_proj_f32(gen):
+    x, w, b = _proj_args(gen)
+    proj_kernel._f32_cuda(x, w, b, w, b)
+
+
 # (what runs, the wrapper that counts its launch or None, the entries it calls in order)
 CALLERS = {
     "bilstm_recurrence": (call_recurrence, lstm_kernel.bilstm_recurrence,
@@ -153,6 +158,7 @@ CALLERS = {
     # on a CPU x the tanh pass before the product runs its plain version
     "input_proj_one": (call_proj_one, proj_kernel.input_proj_one, ["input_proj_launch"]),
     "input_proj_both": (call_proj_both, proj_kernel.input_proj_both, ["input_proj_launch"]),
+    "input_proj_f32": (call_proj_f32, proj_kernel.input_proj_f32, ["input_proj_f32_launch"]),
     "bilstm_recurrence_smem": (lambda gen: lstm_kernel.library_smem_bytes("bilstm_recurrence", H), None,
                                ["bilstm_recurrence_smem_bytes"]),
     "bilstm_train_fwd_smem": (lambda gen: lstm_kernel.library_smem_bytes("bilstm_train_fwd", H), None,
@@ -162,6 +168,8 @@ CALLERS = {
     "gat_cycle_smem": (lambda gen: gat_kernel.library_smem_bytes(B, N, D, HEADS, gat_kernel.cycle_plan(B, N, D, HEADS)),
                        None, ["gat_cycle_smem_bytes"]),
     "input_proj_smem": (lambda gen: proj_kernel.library_smem_bytes(), None, ["input_proj_smem_bytes"]),
+    "input_proj_f32_smem": (lambda gen: proj_kernel.f32_library_smem_bytes(), None,
+                            ["input_proj_f32_smem_bytes"]),
 }
 LAUNCHERS = [name for name, (_, wrapper, _) in CALLERS.items() if wrapper is not None]
 
@@ -211,6 +219,8 @@ META_CALLS = {
     "input_proj_both": lambda: proj_kernel.input_proj_both(
         _meta(R, T, D), _meta(4 * H, D), _meta(4 * H), _meta(4 * H, D), _meta(4 * H)),
     "tanh_to_bf16": lambda: proj_kernel.tanh_to_bf16(_meta(R, T, D)),
+    "input_proj_f32": lambda: proj_kernel.input_proj_f32(
+        _meta(R, T, D), _meta(4 * H, D), _meta(4 * H), _meta(4 * H, D), _meta(4 * H)),
 }
 
 

@@ -7,7 +7,11 @@ the JAX package, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-fp32 arithmetic, TF32 off. The tanh pass is compared bit for bit.
+fp32 arithmetic, TF32 off. The tanh pass is compared bit for bit. Kernel 7
+(3xTF32) is held against the fp64 product: at the train cells' shapes its
+relative Frobenius error is at most twice ``torch.baddbmm``'s in fp32,
+and ``baddbmm`` in TF32 falls outside that bound (so the rule tells plain
+TF32 apart); at small ragged shapes within that bound or 1e-6.
 Tolerances: recurrence 1e-4 absolute; graph
 cycle, model outputs and the training backward's gradients
 1e-3 * max(1, max|ref|) (fp32 sums in another order; the backward carries
@@ -26,8 +30,10 @@ import pytest
 import torch
 
 from dualvgr_tpu_torch import build_model
+from dualvgr_tpu_torch.bench.proj_kernel_ab import baddbmm_errors, f32_inputs, fp64_product, rel_error
 from dualvgr_tpu_torch.bench.proj_probe import compare
 from dualvgr_tpu_torch.ops import _build, gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel
+from dualvgr_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -538,6 +544,69 @@ def test_input_proj_wrapper_refuses_what_the_kernel_does_not_take(cuda):
             proj_kernel.tanh_to_bf16.launches) == n0
 
 
+# the train cells' R at T 16 (R*T 65,536, 32,768 -- msvd-qa's eval too --
+# and 81,920), D 2,048 into 2 x 1,536 gate columns
+K7_CELLS = {"msrvtt-qa": 4096, "msvd-qa": 2048, "svqa": 5120}
+
+
+@pytest.mark.parametrize("cell", list(K7_CELLS))
+def test_input_proj_f32_keeps_fp32_precision_at_the_cells_shapes(cuda, cell):
+    rows = K7_CELLS[cell]
+    args = f32_inputs(rows, torch.Generator(device=cuda).manual_seed(rows))
+    want = fp64_product(*args)
+    e_fp32, e_tf32 = baddbmm_errors(args, want)
+    before = proj_kernel.input_proj_f32.launches
+    trace.enable()
+    got = proj_kernel.input_proj_f32(*args)
+    torch.cuda.synchronize()
+    trace.disable()
+    assert proj_kernel.input_proj_f32.launches == before + 1
+    assert trace.counters() == {"proj.tc_f32_rows": rows * 16}
+    err = rel_error(got, want)
+    assert err <= 2 * e_fp32, f"kernel 7 {err:.3e} against baddbmm's fp32 {e_fp32:.3e}"
+    assert e_tf32 > 2 * e_fp32, f"baddbmm in TF32 {e_tf32:.3e} within the bound {2 * e_fp32:.3e}"
+
+
+@pytest.mark.parametrize("r,t,d,g", [
+    (37, 5, 72, 200),    # ragged M (185 rows), K not a multiple of 32, an N tile straddles the directions
+    (3, 7, 36, 64),      # K of one and a bit k-blocks
+    (1, 1, 4, 4),        # the least the kernel takes
+    (130, 3, 100, 260),  # two M tiles, 4H not a multiple of 8
+    (9, 16, 2048, 1536), # the cells' widths at few rows
+])
+def test_input_proj_f32_matches_fp64_on_ragged_shapes(cuda, r, t, d, g):
+    args = f32_inputs(r, torch.Generator(device=cuda).manual_seed(r * t), t=t, d=d, g=g)
+    want = fp64_product(*args)
+    e_fp32, _ = baddbmm_errors(args, want)
+    got = proj_kernel.input_proj_f32(*args)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.float32 and a.shape == (t, r, g) for a in got)
+    err = rel_error(got, want)
+    assert err <= max(2 * e_fp32, 1e-6), f"{err:.3e} against baddbmm's {e_fp32:.3e}"
+    # both directions' time order: the forward's step t at t, the backward's at T-1-t
+    x, w_f, b_f, w_b, b_b = (a.double() for a in args)
+    for step in (0, t - 1):
+        torch.testing.assert_close(got[0][step].double(), x[:, step] @ w_f.t() + b_f, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[1][t - 1 - step].double(), x[:, step] @ w_b.t() + b_b, rtol=1e-5, atol=1e-5)
+
+
+def test_input_proj_f32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    w, b = torch.zeros(64, 40, device=cuda), torch.zeros(64, device=cuda)
+    before = proj_kernel.input_proj_f32.launches
+    with pytest.raises(TypeError):
+        proj_kernel.input_proj_f32(torch.zeros(3, 4, 40, device=cuda, dtype=torch.bfloat16), w, b, w, b)
+    with pytest.raises(ValueError, match="% 4"):
+        w6 = torch.zeros(64, 42, device=cuda)
+        proj_kernel.input_proj_f32(torch.zeros(3, 4, 42, device=cuda), w6, b, w6, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        proj_kernel.input_proj_f32(torch.zeros(4, 3, 40, device=cuda).transpose(0, 1), w, b, w, b)
+    with pytest.raises(ValueError, match="aligned"):
+        proj_kernel.input_proj_f32(torch.zeros(3 * 4 * 40 + 1, device=cuda)[1:].view(3, 4, 40), w, b, w, b)
+    with pytest.raises(RuntimeError, match="autograd"):
+        proj_kernel.input_proj_f32(torch.zeros(3, 4, 40, device=cuda), w.clone().requires_grad_(), b, w, b)
+    assert proj_kernel.input_proj_f32.launches == before
+
+
 def test_mm_f32_keeps_an_fp32_output(rs, cuda):
     """The streamed product on the card: bf16 operands, fp32 sums and an
     fp32 output, equal to the fp32 product of the rounded operands up to the
@@ -888,7 +957,8 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
     checksum and the eval step's predictions against one process's step on
     the same global batches, the second with 3 of 8 rows padded (the fp32
     train limits: 1e-4 relative); kernels 3 and 4 launch 3 times a step on
-    each rank, kernels 1 and 2 three and two times an eval forward."""
+    each rank and kernel 7 once, kernels 1 and 2 three and two times an
+    eval forward and kernel 7 once."""
     from dualvgr_tpu_torch.parallel import dryrun
 
     batches = dryrun.tiny_batches(1, seed=11) + dryrun.tiny_batches(1, seed=12, pad=3)
@@ -899,5 +969,5 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
         np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-4)
         np.testing.assert_allclose(r["checksum"], one["checksum"], rtol=1e-4)
         np.testing.assert_array_equal(r["preds"], one["preds"])
-        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0) == one["launches_train"]
-        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0) == one["launches_eval"]
+        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0, 2) == one["launches_train"]
+        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0, 1) == one["launches_eval"]
