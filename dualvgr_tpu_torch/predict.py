@@ -19,7 +19,11 @@ weights otherwise: useful only for smoke runs). Each video is decoded once
 one call; all videos' questions go through DualVGR in one forward. It runs
 on the CUDA device unless ``--device cpu`` is given; there is no fallback.
 ``predict_frames`` is the same pipeline from decoded frames, which needs
-no cv2.
+no cv2. With the port's tracer on (``utils/trace.py``) a video records
+the spans ``extract.upload``, ``extract.clips``, ``extract.appearance``
+and ``extract.motion``, and a call ``predict.encode`` and
+``predict.forward``, with the counters of the videos, frames, clips,
+bytes and questions they took.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from dualvgr_tpu_torch.preprocess.features import (
     FRAMES_PER_CLIP, build_appearance_extractor, build_motion_extractor, clips_from_frames, decode_video_rgb,
 )
 from dualvgr_tpu_torch.utils.device import resolve_device
+from dualvgr_tpu_torch.utils.trace import count, span
 
 
 def video_features(frames, app_extract, mot_extract, num_clips: int, appearance_size: int = 224,
@@ -50,10 +55,15 @@ def video_features(frames, app_extract, mot_extract, num_clips: int, appearance_
     f = FRAMES_PER_CLIP
     if len(frames) == 0:
         return torch.zeros((num_clips, f, 2048), device=dev), torch.zeros((num_clips, 2048), device=dev)
+    count("extract.videos")
     a_hw, m_hw = (appearance_size,) * 2, (motion_size,) * 2
-    frames = torch.as_tensor(frames).to(dev)  # one uint8 copy serves both sizes
-    clips_a = clips_from_frames(frames, num_clips, f, a_hw, False, dev)
-    clips_m = clips_from_frames(frames, num_clips, f, m_hw, True, dev)
+    frames = torch.as_tensor(frames)
+    count("extract.upload_bytes", frames.nbytes)
+    with span("extract.upload"):
+        frames = frames.to(dev)  # one uint8 copy serves both sizes
+    with span("extract.clips"):
+        clips_a = clips_from_frames(frames, num_clips, f, a_hw, False, dev)
+        clips_m = clips_from_frames(frames, num_clips, f, m_hw, True, dev)
     app = app_extract(clips_a.reshape(num_clips * f, *clips_a.shape[2:])).reshape(num_clips, f, -1)
     return app, mot_extract(clips_m)
 
@@ -91,8 +101,11 @@ def predict_frames(frames_list, questions, *, model, vocab, app_extract, mot_ext
     feats = [by_video[id(fr)] for fr in frames_list]
     app = torch.stack([a for a, _ in feats])
     mot = torch.stack([m for _, m in feats])
-    q, qlen = encode_questions(questions, vocab)
-    return answer_logits(model, app, mot, q, qlen)
+    with span("predict.encode"):
+        q, qlen = encode_questions(questions, vocab)
+    count("predict.questions", len(questions))
+    with span("predict.forward"):
+        return answer_logits(model, app, mot, q, qlen)
 
 
 def top_answers(logits: np.ndarray, answer_vocab, topk: int):

@@ -64,6 +64,7 @@ from dualvgr_tpu_torch.models.backbones.resnext3d import ResNeXt101_3D, port_res
 from dualvgr_tpu_torch.preprocess.datautils import msrvtt_qa, msvd_qa, svqa
 from dualvgr_tpu_torch.preprocess.resize import resize_bicubic
 from dualvgr_tpu_torch.utils.device import resolve_device
+from dualvgr_tpu_torch.utils.trace import count, span
 
 FRAMES_PER_CLIP = 16
 
@@ -224,13 +225,20 @@ def build_backbone(kind: str, ckpt_path: str = "", device="cuda", compute_dtype:
     return model if fmt is None else model.to(memory_format=fmt)
 
 
+# the tracer's span and counter of each backbone: one span a call, and
+# the frames (appearance) or clips (motion) it took
+_TRACED = {"appearance": ("extract.appearance", "extract.frames"), "motion": ("extract.motion", "extract.clips")}
+
+
 def _extractor(kind, model, normalize, dev, channels_last):
     fp32_cuda = dev.type == "cuda" and model.compute_dtype == "float32"
     fmt = _layout(kind, model.compute_dtype, dev, channels_last)
+    span_name, counter = _TRACED[kind]
 
     def extract(x) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=torch.float32).to(dev, non_blocking=True)
-        with torch.no_grad(), _cudnn_fp32(fp32_cuda):
+        count(counter, x.shape[0])
+        with span(span_name), torch.no_grad(), _cudnn_fp32(fp32_cuda):
             if normalize is not None:
                 x = normalize(x)
             if fmt is not None:

@@ -51,6 +51,15 @@ that runs it:
                                     brought to the host (the wait for the card)
 ``validate.tally``        caller    everything after a pass's loop: concatenations,
                                     buckets, strings
+``extract.upload``        caller    ``predict.py::video_features``: one video's decoded
+                                    frames put on the device (pageable, whole)
+``extract.clips``         caller    its clip sampling and both resizes on the device
+``extract.appearance``    caller    ``preprocess/features.py``: one call of the
+                                    appearance extractor (normalise, ResNet-101)
+``extract.motion``        caller    one call of the motion extractor (ResNeXt-101 3D)
+``predict.encode``        caller    ``predict.py::predict_frames``: the questions
+                                    tokenized and encoded
+``predict.forward``       caller    its DualVGR forward (the logits left on the device)
 ========================  ========  ==================================================
 
 Counters: ``loader.batches``, ``loader.rows`` (rows gathered, padding rows
@@ -67,7 +76,15 @@ the bytes of gate activations kernel 3 keeps for kernel 4, a launch on the
 card; eager and captured steps only, as ``model.unit_cycles``);
 ``proj.tc_f32_rows`` (``ops/proj_kernel.py::input_proj_f32``: the rows R*T
 that kernel 7 projects on the tensor cores, a launch on the card; eager
-and captured steps and every eval forward).
+and captured steps and every eval forward); ``extract.videos`` (videos
+with frames handed to ``predict.py::video_features``),
+``extract.upload_bytes`` (their decoded frames' bytes put on the device),
+``extract.frames`` and ``extract.clips`` (``preprocess/features.py``: the
+frames through ResNet-101 and the clips through ResNeXt-101 3D, counted
+where each extractor is called, the feature CLI's batches too) and
+``predict.questions`` (the questions ``predict_frames`` answered). The
+extraction spans are the host's: the backbones' kernels run on after
+their span ends, until something waits for the features.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ train step yields its forward, backward and optimizer spans (the model's
 unit cycles inside the first, the clip and Adam inside the last), and a
 forward one ``model.unit`` span and count a unit cycle; a loader pass yields its gathers and puts on the
 producer thread and its gets on the consumer, with counters equal to the
-batches' sizes; a validation pass yields one fetch a batch and one tally.
+batches' sizes; a validation pass yields one fetch a batch and one tally;
+a ``predict_frames`` call its extraction spans once a video, its encode
+and forward once, with counters equal to what it was given.
 ``prefetch_to_device`` is a pass-through on the CPU: its span and counters
 are held on the card (``tests/test_torch_kernels_cuda.py``).
 """
@@ -257,3 +259,42 @@ def test_a_validation_pass_fetches_each_batch_and_tallies_once(tmp_path, write_p
     assert names == ["validate.fetch"] * len(loader) + ["validate.tally"]
     assert len(out) == (10 if write_preds else 6)
     loader.close()
+
+
+# ---------------------------------------------------------------- the raw-video path
+
+EXTRACT_SPANS = ["extract.upload", "extract.clips", "extract.appearance", "extract.motion"]
+PREDICT_SPANS = ["predict.encode", "predict.forward"]
+
+
+def test_predict_frames_traces_each_video_and_its_questions():
+    """Two videos (one asked twice) through ``predict_frames`` at depth
+    (1, 1, 1, 1) and small sizes: each extraction span once a video, in
+    order, then the encode and the forward once; the counters are the
+    videos, the frames and clips through the backbones, the frames' bytes
+    and the questions the call was given."""
+    from dualvgr_tpu_torch import predict
+    from dualvgr_tpu_torch.preprocess.features import build_appearance_extractor, build_motion_extractor
+
+    clips, words = 2, ["what", "is", "the", "man", "doing"]
+    vocab = {"question_token_to_idx": {"<NULL>": 0, "<UNK>": 1, **{w: i + 2 for i, w in enumerate(words)}}}
+    model = build_model(device="cpu", vision_dim=2048, module_dim=16, word_dim=8, question_vocab_size=len(words) + 2,
+                        num_answers=5, num_of_nodes=clips, graph_layers=1, unit_layers=1)
+    app_x = build_appearance_extractor(device="cpu", layers=(1, 1, 1, 1))
+    mot_x = build_motion_extractor(device="cpu", layers=(1, 1, 1, 1))
+    rng = np.random.RandomState(3)
+    videos = [rng.randint(0, 256, (t, 20, 28, 3)).astype(np.uint8) for t in (9, 40)]
+    questions = ["what is the man doing?", "what is the man", "is the man doing"]
+    trace.enable()
+    logits = predict.predict_frames([videos[0], videos[1], videos[1]], questions, model=model, vocab=vocab,
+                                    app_extract=app_x, mot_extract=mot_x, num_clips=clips, appearance_size=24,
+                                    motion_size=16, device="cpu")
+    trace.disable()
+    assert tuple(logits.shape) == (3, 5)
+    got = [s for s in _by_start(trace.spans()) if s.name.startswith(("extract.", "predict."))]
+    assert [s.name for s in got] == EXTRACT_SPANS * 2 + PREDICT_SPANS
+    assert all(s.parent is None for s in got)
+    counters = trace.counters()
+    assert {k: v for k, v in counters.items() if k.startswith(("extract.", "predict."))} == {
+        "extract.videos": 2, "extract.frames": 2 * clips * 16, "extract.clips": 2 * clips,
+        "extract.upload_bytes": videos[0].nbytes + videos[1].nbytes, "predict.questions": 3}
