@@ -92,6 +92,14 @@ streaming path):
     library yardstick, the bound (three products at 495 TFLOP/s TF32),
     TFLOP/s, the share of the bound, the SM clock and power under load,
     one launch a call;
+12b. wgrad_f32: kernel 8 at the same shapes (the appearance projection's
+    dW_ih over K = R*T from dgates (T, R, 2 x 1,536)): its relative
+    Frobenius error against the fp64 product beside the library SGEMMs'
+    in fp32 and in TF32 (at most twice fp32's, TF32's beyond that); ms,
+    the plain version's ms (the two SGEMMs after the transposing copies it
+    replaces, which is also the library yardstick), the bound (three
+    products at 495 TFLOP/s TF32), TFLOP/s, the share of the bound, the SM
+    clock and power under load, one launch a call;
 13. cli: the CLIs on an MSRVTT-QA-shaped dataset built in memory at the
     flagship width (384 videos, 805 MB of appearance and 50 MB of motion
     in FeatureStores; 640 training, 256 validation and 300 test
@@ -165,8 +173,8 @@ streaming path):
     (losses 1e-4 relative, module gradient norms 1e-3 at the last step,
     the parameter checksum 1e-4, every parameter within one Adam step a
     step, the argmax >= 0.99), kernels 3 and 4 three times a step and
-    kernels 1 and 2 three and two times a forward and kernel 7 once a step
-    and once a forward on each rank, step ms
+    kernels 1 and 2 three and two times a forward, kernels 7 and 8 once a
+    step and kernel 7 once a forward on each rank, step ms
     per rank and the gradient's all-reduce ms; the same steps in bf16
     (kernel 6 once a step, the bf16 limits against the fp32 DP steps);
     ``tensor_parallel: 2`` (with and without ``zero_opt``) on a (1, 2)
@@ -228,7 +236,7 @@ from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch import predict as tpredict
 from dualvgr_tpu_torch.bench import extraction_bench, proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import (
-    baddbmm_errors, clocks_under_load, f32_inputs, fp64_product, rel_error,
+    baddbmm_errors, clocks_under_load, f32_inputs, fp64_product, fp64_wgrad, rel_error, sgemm_errors, wgrad_inputs,
 )
 from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.bench.zoo_check import TOL as TOL_ZOO
@@ -251,8 +259,8 @@ from dualvgr_tpu_torch.ops.lstm_train_kernel import (
     bilstm_train_bwd, bilstm_train_bwd_reference, bilstm_train_fwd, bilstm_train_fwd_reference,
 )
 from dualvgr_tpu_torch.ops.proj_kernel import (
-    input_proj_both, input_proj_both_reference, input_proj_f32, input_proj_f32_reference, input_proj_one,
-    input_proj_one_reference, tanh_to_bf16, tanh_to_bf16_reference,
+    input_proj_both, input_proj_both_reference, input_proj_f32, input_proj_f32_reference, input_proj_f32_wgrad,
+    input_proj_f32_wgrad_reference, input_proj_one, input_proj_one_reference, tanh_to_bf16, tanh_to_bf16_reference,
 )
 from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
 from dualvgr_tpu_torch.preprocess.features import (
@@ -277,15 +285,15 @@ TRAIN_PAD, ALPHA, BETA = 6, 1.0, 1e-8
 TRAIN_CFG = "configs/msrvtt_qa_DualVGR_16.yml"
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # H100 SXM published peaks: fp32 outside the tensor cores, dense bf16 on
-# the tensor cores (kernels 5 and 6), dense TF32 on them (kernel 7's three
-# products), and HBM3 bandwidth
+# the tensor cores (kernels 5 and 6), dense TF32 on them (kernels 7 and 8's
+# three products), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 BF16 = torch.bfloat16
 PROJ_ROWS = (BATCH * CLIPS, SERVE_BATCH * CLIPS)  # the projection's R at batch 256 and 32
-# kernel 7's R at the train cells (batch 256 x 16, 8 and 20 clips of 16 frames)
+# kernels 7 and 8's R at the train cells (batch 256 x 16, 8 and 20 clips of 16 frames)
 PROJ_F32_ROWS = {"msrvtt-qa": BATCH * 16, "msvd-qa": BATCH * 8, "svqa": BATCH * 20}
 # tolerances, fp32 without TF32:
 #   recurrence: 16-24 steps of tanh/sigmoid-bounded states; only the sum
@@ -442,6 +450,8 @@ def phase_build():
           flush=True)
     print(f"  input_proj_f32.cu: input_proj_f32_kernel dynamic shared memory "
           f"{proj_kernel.f32_library_smem_bytes()} bytes", flush=True)
+    print(f"  wgrad_f32.cu: wgrad_f32_kernel dynamic shared memory "
+          f"{proj_kernel.f32_wgrad_library_smem_bytes()} bytes", flush=True)
 
 
 def flagship_inputs(batch, gen):
@@ -604,12 +614,13 @@ def phase_gat(model, app, mot, q, qlen):
 
 # launches per fp32 forward and per bf16 forward (kernels 1-6, the tanh
 # pass, which kernel 6 runs on fp32 x, then kernel 7, the fp32 appearance
-# projection); a GCN model never runs kernel 2
-EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0, 1), "bfloat16": (3, 2, 0, 0, 0, 1, 1, 0)}
-GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0, 1), "bfloat16": (3, 0, 0, 0, 0, 1, 1, 0)}
-# launches per train step: kernel 7 once in fp32, kernel 6 (on bf16 x, no
-# tanh pass) once in bf16
-TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0, 1), "bfloat16": (0, 0, 3, 3, 0, 1, 0, 0)}
+# projection, and kernel 8, its weight gradient); a GCN model never runs
+# kernel 2
+EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0, 1, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1, 0, 0)}
+GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0, 1, 0), "bfloat16": (3, 0, 0, 0, 0, 1, 1, 0, 0)}
+# launches per train step: kernels 7 and 8 once each in fp32, kernel 6 (on
+# bf16 x, no tanh pass) once in bf16
+TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0, 1, 1), "bfloat16": (0, 0, 3, 3, 0, 1, 0, 0, 0)}
 
 
 def reset_counts():
@@ -1143,7 +1154,7 @@ def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=f"bilstm_train_fwd:{launches[2]},bilstm_train_bwd:{launches[3]},"
                  f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
-                 f"input_proj_f32:{launches[7]}")
+                 f"input_proj_f32:{launches[7]},input_proj_f32_wgrad:{launches[8]}")
     profile_run(f"{tag} profile", lambda: train_step(state, batch, alpha=ALPHA, beta=BETA))
     return launches, ms
 
@@ -1304,6 +1315,53 @@ def phase_proj_f32():
         cases.append(dict(shape=f"{cell}_R{r}", err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bms, flops=3 * product, bytes=nbytes))
         del args, x, w_f, b_f, w_b, b_b, w_cat, b_cat
+        torch.cuda.empty_cache()
+    return cases
+
+
+@torch.no_grad()
+def phase_wgrad_f32():
+    """Kernel 8 at the train cells' shapes (R*T = R x 16 rows, D 2,048, 2 x
+    1,536 gate rows): its relative error against the fp64 product beside
+    the library SGEMMs' in fp32 and in TF32 (at most twice the fp32 one;
+    TF32's beyond that), ms, the plain version's ms (the two SGEMMs after
+    their transposing copies, the library yardstick too), the bound (the
+    three products at the TF32 tensor-core peak, or the bytes: x and the
+    dgates once, dW), TFLOP/s of the product and the share of the bound,
+    one launch a call. Returns the cases, msrvtt-qa's first."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for cell, rows in PROJ_F32_ROWS.items():
+        args = wgrad_inputs(rows, gen)
+        x, dxf, _ = args
+        want = fp64_wgrad(*args)
+        e_fp32, e_tf32 = sgemm_errors(args, want)
+        reset_counts()
+        got = input_proj_f32_wgrad(*args)
+        torch.cuda.synchronize()
+        check(launch_counts()[8] == 1, f"kernel 8 launched {launch_counts()[8]} times for one call")
+        err = rel_error(got, want)
+        abs_err = max((a.double() - b).abs().max().item() for a, b in zip(got, want))
+        check(err <= 2 * e_fp32, f"kernel 8 at {cell}: error {err:.3e} against the SGEMMs' fp32 {e_fp32:.3e}")
+        check(e_tf32 > 2 * e_fp32, f"the SGEMMs in TF32 at {cell}: {e_tf32:.3e} within 2x fp32's {e_fp32:.3e}")
+        del got, want
+        r, t, d = x.shape
+        g = dxf.shape[-1]
+        ms = time_ms(lambda: input_proj_f32_wgrad(*args), 10)
+        plain_ms = time_ms(lambda: input_proj_f32_wgrad_reference(*args), 3)
+        product = 2 * r * t * d * 2 * g
+        nbytes = x.numel() * 4 + 2 * dxf.numel() * 4 + 2 * g * d * 4  # x, the dgates, dW
+        bms, by = bound_ms(3 * product, nbytes, PEAK_TF32_FLOPS)
+        mhz, watts, limit = clocks_under_load(lambda: input_proj_f32_wgrad(*args))
+        say(f"wgrad_f32 {cell}", R=r, T=t, D=d, G=g, rel_err=f"{err:.3e}", max_abs_err=f"{abs_err:.3e}",
+            sgemm_fp32_rel_err=f"{e_fp32:.3e}", sgemm_tf32_rel_err=f"{e_tf32:.3e}",
+            err_over_fp32=f"{err / e_fp32:.2f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bms:.4f}", bound_by=by, product_tflops=f"{product / ms / 1e9:.1f}",
+            tensor_core_tflops=f"{3 * product / ms / 1e9:.1f}", share_of_bound=f"{bms / ms:.3f}",
+            sm_mhz=f"{mhz:.0f}", power_w=f"{watts:.1f}", power_limit_w=limit, launches=1)
+        cases.append(dict(shape=f"{cell}_R{r}", err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=plain_ms, bound_ms=bms, flops=3 * product, bytes=nbytes))
+        del args, x, dxf
         torch.cuda.empty_cache()
     return cases
 
@@ -2717,6 +2775,7 @@ def main():
     k5_cases, k6_cases, tanh_cases, n5 = phase_proj()
     torch.cuda.empty_cache()
     k7_cases = phase_proj_f32()
+    k8_cases = phase_wgrad_f32()
     extractors = phase_extract()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
@@ -2737,7 +2796,7 @@ def main():
     # 5 and 6 are rows per call at R = 4096 (batch 256), R = 512 (batch 32)
     # listed beside it, bound at the bf16 tensor-core peak; kernel 7 a row
     # per call at msrvtt-qa's train step, the other cells beside it, bound
-    # at the TF32 tensor-core peak (three products).
+    # at the TF32 tensor-core peak (three products); kernel 8 likewise.
     eval_shapes = "appearance + question_outputs + question_final"
 
     def cli_launches(i):
@@ -2829,6 +2888,15 @@ def main():
                      **cli_launches(7), **deploy_launches(7), **gcn_launches(7),
                      launches_predict=predict_launches[7],
                      rel_err={c["shape"]: c["rel_err"] for c in k7_cases}),
+        kernel_entry("input_proj_f32_wgrad", "dualvgr_tpu_torch/csrc/wgrad_f32.cu",
+                     "none: the appearance projection's dW_ih, which the JAX package leaves to XLA "
+                     "(dualvgr_tpu/ops/lstm_pallas_train.py:440)",
+                     train_launches[8], k8_cases[:1],
+                     "one call at msrvtt-qa's train step (R*T = 65,536), the other cells beside; bound: the "
+                     "three products at 495 TFLOP/s TF32; plain and library: the two SGEMMs after the "
+                     "transposing copies it replaces; launches: phase train's 5 fp32 steps", library=True,
+                     side_cases=k8_cases[1:], peak=PEAK_TF32_FLOPS, **ddp_launches_of(8), **cli_launches(8),
+                     **gcn_launches(8), rel_err={c["shape"]: c["rel_err"] for c in k8_cases}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""A/B timing of build variants of the projection GEMMs: kernel 6 (``csrc/input_proj.cu``, bf16) and kernel 7 (``csrc/input_proj_f32.cu``, 3xTF32).
+"""A/B timing of build variants of the projection GEMMs: kernel 6 (``csrc/input_proj.cu``, bf16), kernel 7 (``csrc/input_proj_f32.cu``, 3xTF32) and kernel 8 (``csrc/wgrad_f32.cu``, 3xTF32).
 
-    python -m dualvgr_tpu_torch.bench.proj_kernel_ab [--kernel 6|7]
+    python -m dualvgr_tpu_torch.bench.proj_kernel_ab [--kernel 6|7|8]
     python -m dualvgr_tpu_torch.bench.proj_kernel_ab --baseline DIR
 
 Needs one CUDA device and ``nvcc``. Each kernel 6 variant is the committed
@@ -20,7 +20,14 @@ promotion's adds or without the epilogue; they run through
 of D = 2,048 into 2 x 1,536 columns; ``f32_inputs``), each with its error
 against the fp64 product (``rel_error``) beside ``torch.baddbmm``'s in fp32
 and in TF32, and ``baddbmm``'s time (the plain version: the two products,
-the bias broadcast and the flip). Every variant is compiled by
+the bias broadcast and the flip). Each kernel 8 variant is its committed
+source with a 3-stage ring or, for timing only, with the product's launch
+cut (the pass alone), the pass's launch cut (the product alone, on a
+scratch left by an earlier call) or the promotion's adds cut; they run
+through ``input_proj_f32_wgrad`` at the same rows (``wgrad_inputs``),
+each with its error against the fp64 product (``fp64_wgrad``) beside the
+library SGEMMs' in fp32 and in TF32, interleaved with the plain version
+(the two SGEMMs after their transposing copies). Every variant is compiled by
 ``ops/_build.py::build_variants`` and timed with CUDA events, the variants
 interleaved (forward order, then reversed) in one process on one card.
 Prints each variant's registers and the compiler's warnings, then per
@@ -98,10 +105,10 @@ K7_ROWS = (4096, 2048, 5120)
 T, D, G = 16, 2048, 1536
 
 
-def k7_variant_source(text: str, changes: dict) -> str:
+def apply_changes(text: str, changes: dict, source: str = K7_SOURCE) -> str:
     for old, new in changes.items():
         if old not in text:
-            raise RuntimeError(f"{K7_SOURCE} has no `{old}`: update the variants")
+            raise RuntimeError(f"{source} has no `{old}`: update the variants")
         text = text.replace(old, new)
     return text
 
@@ -166,13 +173,106 @@ def baddbmm_errors(args, want):
     return tuple(errs)
 
 
+def wgrad_inputs(rows, gen, t=T, d=D, g=G):
+    """Kernel 8's inputs at R = ``rows`` on ``gen``'s device: ``f32_inputs``'s
+    x and each direction's dgates (T, R, 4H) of N(0, 1e-6), about the size
+    of a train step's."""
+    dev = gen.device
+    x = torch.tanh(torch.randn(rows, t, d, device=dev, generator=gen) / 0.85)
+    dxf, dxb = (torch.randn(t, rows, g, device=dev, generator=gen) * 1e-3 for _ in range(2))
+    return x, dxf, dxb
+
+
+def fp64_wgrad(x, dxf, dxb):
+    """Kernel 8's function in fp64: ``(dw_f, dw_b)``, the backward
+    direction's dgates in kernel time (its step t with x at T-1-t)."""
+    x64 = x.double()
+    return (torch.einsum("trg,rtd->gd", dxf.double(), x64),
+            torch.einsum("trg,rtd->gd", dxb.double(), x64.flip(1)))
+
+
+def sgemm_errors(args, want):
+    """Kernel 8's plain version's (the library SGEMMs') error in fp32 and
+    in TF32."""
+    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32_wgrad_reference
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        errs = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            errs.append(rel_error(input_proj_f32_wgrad_reference(*args), want))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    return tuple(errs)
+
+
+K8_SOURCE = "wgrad_f32.cu"
+K8_RING = "constexpr int kStages = 4;"
+K8_PASS = "x_split_kernel<<<pass_grid, kPassThreads, 0, s>>>("
+K8_PRODUCT = "wgrad_f32_kernel<<<grid, kThreads, kSmemBytes, s>>>("
+# name -> ({committed line: variant line}, timing only); "library" is no
+# build: the plain version, the two SGEMMs after their transposing copies
+K8_VARIANTS = {
+    "committed": ({}, False),
+    "3stages": ({K8_RING: "constexpr int kStages = 3;"}, False),
+    "pass_alone": ({K8_PRODUCT: "if (false) " + K8_PRODUCT}, True),
+    "product_alone": ({K8_PASS: "if (false) " + K8_PASS}, True),
+    "no_promotion": ({K7_PROMOTION_CUT[0]: K7_PROMOTION_CUT[1]}, True),
+}
+
+
+def run_k8(workdir: Path):
+    """Kernel 8's variants and the library at the train cells' rows, in
+    turns; the cuts say where its time goes."""
+    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32_wgrad, input_proj_f32_wgrad_reference
+
+    workdir.mkdir()
+    text = (_build.CSRC / K8_SOURCE).read_text()
+    built = _build.build_variants(K8_SOURCE, {name: {K8_SOURCE: apply_changes(text, changes, K8_SOURCE)}
+                                              for name, (changes, _) in K8_VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
+        report(f"k8 {name}", out)
+    names = ["library", *K8_VARIANTS]
+    order = names + names[::-1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows in K7_ROWS:
+        args = wgrad_inputs(rows, gen)
+        want = fp64_wgrad(*args)
+        e32, e_tf32 = sgemm_errors(args, want)
+        times, errs = {}, {}
+        for name in order:
+            if name == "library":
+                times.setdefault(name, []).append(time_ms(lambda: input_proj_f32_wgrad_reference(*args), 5))
+                continue
+            with _build.using(K8_SOURCE, built[name][0]):
+                got = input_proj_f32_wgrad(*args)
+                torch.cuda.synchronize()
+                if not K8_VARIANTS[name][1]:
+                    errs[name] = rel_error(got, want)
+                del got
+                times.setdefault(name, []).append(time_ms(lambda: input_proj_f32_wgrad(*args), 10))
+        flops = 2 * rows * T * D * 2 * G
+        with _build.using(K8_SOURCE, built["committed"][0]):
+            mhz, watts, _ = clocks_under_load(lambda: input_proj_f32_wgrad(*args))
+        print(f"[k8 R{rows}] library SGEMMs error {e32:.3e} (fp32), {e_tf32:.3e} (TF32); committed under load: "
+              f"SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
+        for name, ms in times.items():
+            note = (" (the two SGEMMs and their transposing copies)" if name == "library"
+                    else " (timing only)" if K8_VARIANTS[name][1]
+                    else f", error {errs[name]:.3e} ({errs[name] / e32:.2f}x)")
+            print(f"[k8 R{rows}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
+                  + f" ms, {3 * flops / min(ms) / 1e9:.1f} TFLOP/s on the tensor cores{note}", flush=True)
+        del args, want
+
+
 def run_k7(workdir: Path):
     """Kernel 7's variants at the train cells' rows."""
     from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32, input_proj_f32_reference
 
     workdir.mkdir()
     text = (_build.CSRC / K7_SOURCE).read_text()
-    built = _build.build_variants(K7_SOURCE, {name: {K7_SOURCE: k7_variant_source(text, changes)}
+    built = _build.build_variants(K7_SOURCE, {name: {K7_SOURCE: apply_changes(text, changes)}
                                               for name, (changes, _) in K7_VARIANTS.items()}, workdir)
     for name, (_, out) in built.items():
         report(f"k7 {name}", out)
@@ -245,7 +345,7 @@ def measure():
 @torch.no_grad()
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("6", "7"), help="only this kernel's variants")
+    ap.add_argument("--kernel", choices=("6", "7", "8"), help="only this kernel's variants")
     ap.add_argument("--baseline", type=Path, help="a checkout of an earlier commit to time kernel 6 against")
     ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -260,9 +360,11 @@ def main():
         return
     _build.BUILD_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        if args.kernel != "6":
+        if args.kernel in (None, "8"):
+            run_k8(Path(tmp) / "k8")
+        if args.kernel in (None, "7"):
             run_k7(Path(tmp) / "k7")
-        if args.kernel != "7":
+        if args.kernel in (None, "6"):
             run_k6(Path(tmp) / "k6")
 
 

@@ -107,46 +107,6 @@ constexpr int kSmemBytes = kStages * kStageBytes + kOutBytes + 2 * kStages * 8 +
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block can have");
 constexpr int kSplitThreads = 256;
 
-// fp32 v rounded to TF32 (nearest, ties away): its 19 high bits, the rest zero
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void fence_frags(uint32_t (&f)[kSteps][8]) {
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[s][i])::"memory");
-}
-
-// d (64 x 128, fp32) += A (64 x 8, four registers a thread) B^T (128 x 8,
-// shared memory), or = with scale_d 0
-__device__ __forceinline__ void wgmma(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                      uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
-}
-
 struct Epilogue {
   const float* bias_f;
   const float* bias_b;
@@ -258,9 +218,9 @@ input_proj_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_co
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
         for (int s = 0; s < kSteps; ++s) {  // 8 tf32 = 32 bytes = 2 descriptor units
-          wgmma(d, f[s][4], f[s][5], f[s][6], f[s][7], dhi + 2 * s, s == 0 ? 0 : 1);
-          wgmma(d, f[s][0], f[s][1], f[s][2], f[s][3], dlo + 2 * s, 1);
-          wgmma(d, f[s][0], f[s][1], f[s][2], f[s][3], dhi + 2 * s, 1);
+          wgmma_tf32(d, f[s][4], f[s][5], f[s][6], f[s][7], dhi + 2 * s, s == 0 ? 0 : 1);
+          wgmma_tf32(d, f[s][0], f[s][1], f[s][2], f[s][3], dlo + 2 * s, 1);
+          wgmma_tf32(d, f[s][0], f[s][1], f[s][2], f[s][3], dhi + 2 * s, 1);
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
@@ -310,11 +270,6 @@ input_proj_f32_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_co
     // the last tile's stores complete before the block's shared memory goes
     if (tid < 64) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
   }
-}
-
-__device__ __forceinline__ void split(float v, float& hi, float& lo) {
-  hi = __uint_as_float(tf32(v));
-  lo = __uint_as_float(tf32(v - hi));
 }
 
 // [W_f; W_b] (2 n4 float4s) -> W_hi, W_lo: TF32's big and small halves

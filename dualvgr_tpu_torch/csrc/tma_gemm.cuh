@@ -1,13 +1,14 @@
-// What the two tensor-core GEMMs of the input projection share: kernel 6
-// (input_proj.cu, bf16) and kernel 7 (input_proj_f32.cu, 3xTF32). Both are
+// What the tensor-core GEMMs of the input projection share: kernel 6
+// (input_proj.cu, bf16), kernel 7 (input_proj_f32.cu, 3xTF32) and kernel 8
+// (wgrad_f32.cu, 3xTF32, the projection's weight gradient). All are
 // persistent and warp-specialised: one producer thread keeps a ring of
 // shared-memory stages filled by TMA, each stage's arrival counted in bytes
 // on a "full" mbarrier, and consumer warpgroups hand a stage back on an
-// "empty" mbarrier once the wgmma that read it has retired. Both read their
-// operands K-major with the 128-byte swizzle, 128 bytes of K a tile row,
-// and stage the output tile in shared memory for one bulk copy a row into
-// the time-major output. Here: the barriers, the copies, the wgmma matrix
-// descriptor and the tensor maps.
+// "empty" mbarrier once the wgmma that read it has retired. The operands
+// that wgmma reads from shared memory lie K-major with the 128-byte
+// swizzle, 128 bytes of K a tile row. Here: the barriers, the copies, the
+// wgmma matrix descriptor, the tensor maps (2-D, and 3-D for kernel 8's
+// per-step boxes), and the 3xTF32 arithmetic of kernels 7 and 8.
 
 #pragma once
 
@@ -73,6 +74,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// one box of a 3-D tensor map at (c0, c1, c2), the innermost coordinate first
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // wgmma matrix descriptor of a K-major tile with 128-byte swizzle: 8-row
 // groups 1024 bytes apart (SBO); the leading offset is unused in this mode.
 // One unit of the address is 16 bytes: +2 steps 32 bytes along K.
@@ -87,6 +97,59 @@ template <int kN>
 __device__ __forceinline__ void fence_operands(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 3xTF32 (kernels 7 and 8). Each operand a is split into big = tf32(a) and
+// small = tf32(a - big), rounded to nearest, 11 + 11 significant bits that
+// together carry a to about 2^-22 of itself; a product sums small x big +
+// big x small + big x big and drops small x small.
+
+// fp32 v rounded to TF32 (nearest, ties away): its 19 high bits, the rest zero
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split(float v, float& hi, float& lo) {
+  hi = __uint_as_float(tf32(v));
+  lo = __uint_as_float(tf32(v - hi));
+}
+
+// keeps the compiler from moving accesses of A fragments that an in-flight
+// wgmma reads across this point
+template <int kSteps>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[kSteps][8]) {
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) asm volatile("" : "+r"(f[s][i])::"memory");
+}
+
+// d (64 x 128, fp32) += A (64 x 8, four registers a thread) B^T (128 x 8,
+// shared memory, K-major), or = with scale_d 0
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
 // cuTensorMapEncodeTiled, taken from the driver at run time, so that the
@@ -124,6 +187,22 @@ inline bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType typ
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 3-D fp32 tensor of dims (d0, d1, d2), d0 contiguous, dims 1 and 2
+// ``s1`` and ``s2`` bytes apart, read in (b0, b1, b2) boxes, b0 * 4 = 128:
+// one swizzle row; the boxes' elements past its edges read as zero
+inline bool make_map_3d(CUtensorMap* map, const void* base, int d0, int d1, int d2, long long s1, long long s2,
+                        int b0, int b1, int b2) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, (cuuint32_t)b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -71,6 +71,10 @@ ENTRIES = {
         "input_proj_f32_launch": (_I, (_P,) * 8 + (_I,) * 4 + (_P,)),
         "input_proj_f32_smem_bytes": (_I, ()),
     },
+    "wgrad_f32.cu": {
+        "wgrad_f32_launch": (_I, (_P,) * 6 + (_I,) * 5 + (_P,)),
+        "wgrad_f32_smem_bytes": (_I, ()),
+    },
 }
 SOURCES = tuple(ENTRIES)
 _SOURCE_OF = {name: source for source, entries in ENTRIES.items() for name in entries}

@@ -29,7 +29,11 @@ as the JAX package leaves it to XLA (``lstm_pallas_train.py:274-277``).
   of kernel 6 (``ops/proj_kernel.py::input_proj_both``, no tanh) on the
   bf16-rounded x, whose bf16 gates kernel 3 reads; x is saved in bf16 for
   the backward, which gives dW_ih as a bf16-operand product with fp32
-  output and db from the fp32 dgates.
+  output and db from the fp32 dgates. In fp32 the backward's dW_ih is one
+  launch of kernel 8 (``ops/proj_kernel.py::input_proj_f32_wgrad``, 3xTF32
+  on the tensor cores, both directions from kernel 4's dgates as they lie;
+  on a CPU tensor its plain version, the two fp32 products), so the fp32
+  forward and backward take the tensor cores together.
 
 Weights come in as (H, 4H) recurrent matrices (``weight_hh.t().contiguous()``)
 and, for the appearance op, torch-layout (4H, D) input matrices and one
@@ -44,7 +48,7 @@ from torch.autograd.function import once_differentiable
 
 from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
 from dualvgr_tpu_torch.ops.precision import mm_f32
-from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_f32
+from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_f32, input_proj_f32_wgrad
 
 
 def recurrent_weight_grads(hprev, dxf, dxb):
@@ -116,16 +120,16 @@ class AppearanceBiLSTMTrain(torch.autograd.Function):
         dxf, dxb = bilstm_train_bwd(acts, w_hh_f, w_hh_b, None, cprev, dfinal.contiguous())
         dwhf, dwhb = recurrent_weight_grads(hprev, dxf, dxb)
         # dW_ih = sum over (t, r) of dxproj^T x, the backward direction's
-        # dgates flipped back to original time; one product per direction.
-        # Under a stream dtype x is saved rounded and the dgates are rounded
-        # as operands (the JAX _sd_einsum), with an fp32 output.
-        r, t, d = x.shape
-        xs = x.reshape(r * t, d)
-        g = dxf.shape[-1]
+        # dgates read back in original time. In fp32 both directions are
+        # one launch of kernel 8. Under a stream dtype x is saved rounded
+        # and the dgates are rounded as operands (the JAX _sd_einsum), one
+        # product per direction with an fp32 output.
         if x.dtype == torch.float32:
-            dwih_f = dxf.transpose(0, 1).reshape(r * t, g).t() @ xs
-            dwih_b = dxb.flip(0).transpose(0, 1).reshape(r * t, g).t() @ xs
+            dwih_f, dwih_b = input_proj_f32_wgrad(x.contiguous(), dxf, dxb)
         else:
+            r, t, d = x.shape
+            xs = x.reshape(r * t, d)
+            g = dxf.shape[-1]
             dwih_f = mm_f32(dxf.to(x.dtype).transpose(0, 1).reshape(r * t, g).t(), xs)
             dwih_b = mm_f32(dxb.to(x.dtype).flip(0).transpose(0, 1).reshape(r * t, g).t(), xs)
         return None, dwih_f, dxf.sum((0, 1)), dwhf, dwih_b, dxb.sum((0, 1)), dwhb, None

@@ -1,10 +1,11 @@
 """The input projection of a BiLSTM: hand-written CUDA kernels and plain versions.
 
 ``input_proj`` is the plain projection ``x @ w_ih^T + b``, time-major, of
-one direction. Four wrappers over two CUDA sources: three over
+one direction. Five wrappers over three CUDA sources: three over
 ``csrc/input_proj.cu`` (bf16), the port's counterparts of the JAX
 package's two probe kernels and the tanh pass that both run on fp32 x
-before their product, and one over ``csrc/input_proj_f32.cu`` (fp32):
+before their product, one over ``csrc/input_proj_f32.cu`` (fp32) and one
+over ``csrc/wgrad_f32.cu`` (fp32, the projection's weight gradient):
 
 * ``input_proj_one`` replaces ``benchmarks/proj_probe.py::make_pallas_proj``:
   one direction of fp32 x, tanh applied, ``(T, R, 4H)`` bf16, optionally
@@ -25,6 +26,12 @@ before their product, and one over ``csrc/input_proj_f32.cu`` (fp32):
   appearance encoder takes it on the kernel path in fp32, in training
   (``ops/lstm_train.py``) and in eval (``ops/lstm.py::appearance_final_f32``);
   it counts the rows it projects in the tracer's ``proj.tc_f32_rows``.
+* ``input_proj_f32_wgrad`` (kernel 8) replaces no TPU kernel: both
+  directions' fp32 ``dW_ih = dxproj^T x`` from kernel 4's dgates as they
+  lie, (T, R, 4H) in kernel time, as 3xTF32 on the tensor cores; its plain
+  version is the two products the appearance op's backward ran before, bit
+  for bit. That backward takes it in fp32 (``ops/lstm_train.py``), where
+  its forward took kernel 7; it counts R*T in ``proj.tc_f32_wgrad_rows``.
 
 The bf16 function, for x (R, T, D) and a direction's torch-layout ``w_ih``
 (4H, D) and fp32 bias b (4H,): ``bf16(bf16(f(x[:, t])) @ bf16(w_ih)^T + b)``,
@@ -38,18 +45,20 @@ bf16 once per call.
 ``input_proj_both`` and ``input_proj_f32``, which the eval path runs, call
 the torch custom ops ``dualvgr_torch::input_proj_both`` (the tanh pass
 inside it) and ``dualvgr_torch::input_proj_f32``, so that ``torch.export``
-keeps each as one node. On a CPU tensor each wrapper runs its
+keeps each as one node; ``input_proj_f32_wgrad`` is the custom op
+``dualvgr_torch::input_proj_f32_wgrad`` likewise. On a CPU tensor each wrapper runs its
 ``*_reference``, the same function
 step by step in PyTorch (tanh rounded to bf16, rounded operands upcast, an
 fp32 product, the bias, one rounding); on a CUDA tensor it launches the
 kernel through the shared launch (``ops/launch.py``) or raises. ``launches`` on each wrapper counts its own kernel's
-launches: one per call of ``input_proj_one``, ``input_proj_both`` and
+launches: one per call of ``input_proj_one``, ``input_proj_both``,
 ``input_proj_f32`` (whose entry runs its weights' split pass and then the
-product), and ``tanh_to_bf16`` counts each tanh pass, the two projections' included.
+product) and ``input_proj_f32_wgrad`` (x's split pass, then the product),
+and ``tanh_to_bf16`` counts each tanh pass, the two projections' included.
 They record nothing for autograd: the training path
-(``ops/lstm_train.py``) calls kernels 6 and 7 inside its
-``torch.autograd.Function``. ``dim_limit`` and ``f32_dim_limit`` say which
-widths the products cannot take; ``models/dualvgr.py::kernel_dim_limits``
+(``ops/lstm_train.py``) calls kernels 6, 7 and 8 inside its
+``torch.autograd.Function``. ``dim_limit`` and ``f32_dim_limit`` (kernels
+7 and 8) say which widths the products cannot take; ``models/dualvgr.py::kernel_dim_limits``
 refuses a model with such widths on the card before any forward.
 """
 
@@ -113,6 +122,19 @@ def input_proj_f32_reference(x, w_f, b_f, w_b, b_b):
     return input_proj(x, w_f, b_f), input_proj(x, w_b, b_b, reverse=True)
 
 
+def input_proj_f32_wgrad_reference(x, dxf, dxb):
+    """Plain PyTorch version of kernel 8: ``(dw_f, dw_b)``, (4H, D) each,
+    the two fp32 products it replaces: each direction's dgates (T, R, 4H),
+    the backward's flipped back to the sequence's time, made row-major over
+    (R*T) by a copy, transposed, times x (R*T, D)."""
+    r, t, d = x.shape
+    g = dxf.shape[-1]
+    xs = x.reshape(r * t, d)
+    dw_f = dxf.transpose(0, 1).reshape(r * t, g).t() @ xs
+    dw_b = dxb.flip(0).transpose(0, 1).reshape(r * t, g).t() @ xs
+    return dw_f, dw_b
+
+
 def dim_limit(d, g):
     """Why the bf16 product cannot take x of width D = ``d`` into ``g`` = 4H
     gate columns, or None if it can."""
@@ -122,8 +144,8 @@ def dim_limit(d, g):
 
 
 def f32_dim_limit(d, g):
-    """Why kernel 7 cannot take x of width D = ``d`` into ``g`` = 4H gate
-    columns (16-byte rows and column groups), or None if it can."""
+    """Why kernels 7 and 8 cannot take x of width D = ``d`` into ``g`` = 4H
+    gate columns (16-byte rows and column groups), or None if they can."""
     if d <= 0 or g <= 0 or d % 4 or g % 4:
         return f"the fp32 projection kernel needs D % 4 == 0 and 4H % 4 == 0, got D={d}, 4H={g}"
     return None
@@ -137,6 +159,11 @@ def library_smem_bytes():
 def f32_library_smem_bytes():
     """The dynamic shared memory of kernel 7's CTA, the build's own."""
     return call("input_proj_f32_smem_bytes", None)
+
+
+def f32_wgrad_library_smem_bytes():
+    """The dynamic shared memory of kernel 8's CTA, the build's own."""
+    return call("wgrad_f32_smem_bytes", None)
 
 
 def _check_inputs(x, weights, biases, x_dtype, limit=dim_limit):
@@ -278,7 +305,57 @@ def _f32_cuda(x, w_f, b_f, w_b, b_b):
     return xf, xb
 
 
+def input_proj_f32_wgrad(x, dxf, dxb):
+    """Kernel 8: both directions' fp32 input weight gradients from x (R, T,
+    D) and their dgates dxf, dxb (T, R, 4H) in kernel time (``dxb``'s step
+    t is the sequence's step T-1-t), read where they lie.
+
+    Returns ``(dw_f, dw_b)``, fp32 (4H, D) each: ``sum over (t, r) of
+    dxf[t, r]^T x[r, t]`` and of ``dxb[t, r]^T x[r, T-1-t]``. The work is the
+    custom op ``dualvgr_torch::input_proj_f32_wgrad``.
+    """
+    refuse_autograd("input_proj_f32_wgrad", x, dxf, dxb)
+    return dispatch("input_proj_f32_wgrad", x, _wgrad_op, _wgrad_op)(x, dxf, dxb)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::input_proj_f32_wgrad", mutates_args=(), device_types="cpu")
+def _wgrad_op(x: torch.Tensor, dxf: torch.Tensor, dxb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version."""
+    return input_proj_f32_wgrad_reference(x, dxf, dxb)
+
+
+@_wgrad_op.register_fake
+def _(x, dxf, dxb):
+    return tuple(x.new_empty((dxf.shape[-1], x.shape[-1])) for _ in range(2))
+
+
+@_wgrad_op.register_kernel("cuda")
+def _wgrad_cuda(x, dxf, dxb):
+    """The op on CUDA tensors: one launch of ``csrc/wgrad_f32.cu``, which
+    splits x into its TF32 halves, K-major (D, T, R_pad), into a scratch
+    made here, and runs the product; counts R*T in
+    ``proj.tc_f32_wgrad_rows``."""
+    dev = x.device
+    if x.dim() != 3 or dxf.dim() != 3:
+        raise ValueError(f"x must be (R, T, D) and the dgates (T, R, 4H), got {tuple(x.shape)}, {tuple(dxf.shape)}")
+    r, t, d = x.shape
+    g = dxf.shape[-1]
+    if (msg := f32_dim_limit(d, g)) is not None:
+        raise ValueError(msg)
+    for name, a, shape in (("x", x, (r, t, d)), ("dxf", dxf, (t, r, g)), ("dxb", dxb, (t, r, g))):
+        check(name, a, shape, dev, torch.float32)
+        check_aligned(name, a)
+    r_pad = -(-r // 4) * 4  # TMA's 16-byte strides
+    split = torch.empty((2, d, t, r_pad), device=dev, dtype=torch.float32)
+    dw_f, dw_b = (torch.empty((g, d), device=dev, dtype=torch.float32) for _ in range(2))
+    launch(input_proj_f32_wgrad, "wgrad_f32_launch", dev, x.data_ptr(), dxf.data_ptr(), dxb.data_ptr(),
+           split.data_ptr(), dw_f.data_ptr(), dw_b.data_ptr(), r, t, d, g, r_pad)
+    count("proj.tc_f32_wgrad_rows", r * t)
+    return dw_f, dw_b
+
+
 tanh_to_bf16.launches = 0
 input_proj_one.launches = 0
 input_proj_both.launches = 0
 input_proj_f32.launches = 0
+input_proj_f32_wgrad.launches = 0

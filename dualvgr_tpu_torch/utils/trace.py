@@ -76,7 +76,11 @@ the bytes of gate activations kernel 3 keeps for kernel 4, a launch on the
 card; eager and captured steps only, as ``model.unit_cycles``);
 ``proj.tc_f32_rows`` (``ops/proj_kernel.py::input_proj_f32``: the rows R*T
 that kernel 7 projects on the tensor cores, a launch on the card; eager
-and captured steps and every eval forward); ``extract.videos`` (videos
+and captured steps and every eval forward); ``proj.tc_f32_wgrad_rows``
+(``ops/proj_kernel.py::input_proj_f32_wgrad``: the rows R*T whose
+``dW_ih`` kernel 8 sums on the tensor cores, a launch on the card; eager
+and captured steps, so a fp32 train step reads the rows of
+``proj.tc_f32_rows`` in it too); ``extract.videos`` (videos
 with frames handed to ``predict.py::video_features``),
 ``extract.upload_bytes`` (their decoded frames' bytes put on the device),
 ``extract.frames`` and ``extract.clips`` (``preprocess/features.py``: the

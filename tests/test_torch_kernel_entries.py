@@ -144,6 +144,12 @@ def call_proj_f32(gen):
     proj_kernel._f32_cuda(x, w, b, w, b)
 
 
+def call_wgrad_f32(gen):
+    x, _, _ = _proj_args(gen)
+    dx = [torch.randn(T, R, 4 * H, generator=gen) for _ in range(2)]
+    proj_kernel._wgrad_cuda(x, *dx)
+
+
 # (what runs, the wrapper that counts its launch or None, the entries it calls in order)
 CALLERS = {
     "bilstm_recurrence": (call_recurrence, lstm_kernel.bilstm_recurrence,
@@ -159,6 +165,7 @@ CALLERS = {
     "input_proj_one": (call_proj_one, proj_kernel.input_proj_one, ["input_proj_launch"]),
     "input_proj_both": (call_proj_both, proj_kernel.input_proj_both, ["input_proj_launch"]),
     "input_proj_f32": (call_proj_f32, proj_kernel.input_proj_f32, ["input_proj_f32_launch"]),
+    "input_proj_f32_wgrad": (call_wgrad_f32, proj_kernel.input_proj_f32_wgrad, ["wgrad_f32_launch"]),
     "bilstm_recurrence_smem": (lambda gen: lstm_kernel.library_smem_bytes("bilstm_recurrence", H), None,
                                ["bilstm_recurrence_smem_bytes"]),
     "bilstm_train_fwd_smem": (lambda gen: lstm_kernel.library_smem_bytes("bilstm_train_fwd", H), None,
@@ -170,6 +177,7 @@ CALLERS = {
     "input_proj_smem": (lambda gen: proj_kernel.library_smem_bytes(), None, ["input_proj_smem_bytes"]),
     "input_proj_f32_smem": (lambda gen: proj_kernel.f32_library_smem_bytes(), None,
                             ["input_proj_f32_smem_bytes"]),
+    "wgrad_f32_smem": (lambda gen: proj_kernel.f32_wgrad_library_smem_bytes(), None, ["wgrad_f32_smem_bytes"]),
 }
 LAUNCHERS = [name for name, (_, wrapper, _) in CALLERS.items() if wrapper is not None]
 
@@ -221,6 +229,8 @@ META_CALLS = {
     "tanh_to_bf16": lambda: proj_kernel.tanh_to_bf16(_meta(R, T, D)),
     "input_proj_f32": lambda: proj_kernel.input_proj_f32(
         _meta(R, T, D), _meta(4 * H, D), _meta(4 * H), _meta(4 * H, D), _meta(4 * H)),
+    "input_proj_f32_wgrad": lambda: proj_kernel.input_proj_f32_wgrad(
+        _meta(R, T, D), _meta(T, R, 4 * H), _meta(T, R, 4 * H)),
 }
 
 

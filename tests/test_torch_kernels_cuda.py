@@ -11,7 +11,9 @@ fp32 arithmetic, TF32 off. The tanh pass is compared bit for bit. Kernel 7
 (3xTF32) is held against the fp64 product: at the train cells' shapes its
 relative Frobenius error is at most twice ``torch.baddbmm``'s in fp32,
 and ``baddbmm`` in TF32 falls outside that bound (so the rule tells plain
-TF32 apart); at small ragged shapes within that bound or 1e-6.
+TF32 apart); at small ragged shapes within that bound or 1e-6. Kernel 8
+(3xTF32, dW_ih over K = R*T) likewise against the library SGEMMs' fp32
+error.
 Tolerances: recurrence 1e-4 absolute; graph
 cycle, model outputs and the training backward's gradients
 1e-3 * max(1, max|ref|) (fp32 sums in another order; the backward carries
@@ -30,7 +32,9 @@ import pytest
 import torch
 
 from dualvgr_tpu_torch import build_model
-from dualvgr_tpu_torch.bench.proj_kernel_ab import baddbmm_errors, f32_inputs, fp64_product, rel_error
+from dualvgr_tpu_torch.bench.proj_kernel_ab import (
+    baddbmm_errors, f32_inputs, fp64_product, fp64_wgrad, rel_error, sgemm_errors, wgrad_inputs,
+)
 from dualvgr_tpu_torch.bench.proj_probe import compare
 from dualvgr_tpu_torch.ops import _build, gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel
 from dualvgr_tpu_torch.utils import trace
@@ -607,6 +611,68 @@ def test_input_proj_f32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert proj_kernel.input_proj_f32.launches == before
 
 
+@pytest.mark.parametrize("cell", list(K7_CELLS))
+def test_wgrad_f32_keeps_fp32_precision_at_the_cells_shapes(cuda, cell):
+    """Kernel 8 summed over the cells' K = R*T (32,768 to 81,920): within
+    twice the library SGEMMs' fp32 error against fp64, which TF32 is not;
+    one launch, R*T rows counted."""
+    rows = K7_CELLS[cell]
+    args = wgrad_inputs(rows, torch.Generator(device=cuda).manual_seed(rows))
+    want = fp64_wgrad(*args)
+    e_fp32, e_tf32 = sgemm_errors(args, want)
+    before = proj_kernel.input_proj_f32_wgrad.launches
+    trace.enable()
+    got = proj_kernel.input_proj_f32_wgrad(*args)
+    torch.cuda.synchronize()
+    trace.disable()
+    assert proj_kernel.input_proj_f32_wgrad.launches == before + 1
+    assert trace.counters() == {"proj.tc_f32_wgrad_rows": rows * 16}
+    err = rel_error(got, want)
+    assert err <= 2 * e_fp32, f"kernel 8 {err:.3e} against the SGEMMs' fp32 {e_fp32:.3e}"
+    assert e_tf32 > 2 * e_fp32, f"the SGEMMs in TF32 {e_tf32:.3e} within the bound {2 * e_fp32:.3e}"
+
+
+@pytest.mark.parametrize("r,t,d,g", [
+    (37, 5, 72, 200),    # ragged R (a k-block of 5 rows a step), M and N tiles ragged
+    (5, 7, 24, 40),      # R odd, under one k-block
+    (33, 1, 8, 4),       # T 1, R one past a k-block, R_pad 36
+    (1, 1, 4, 4),        # the least the kernel takes
+    (130, 3, 100, 260),  # two M tiles a direction, 4H not a multiple of 8
+    (9, 16, 2048, 1536), # the cells' widths at few rows
+])
+def test_wgrad_f32_matches_fp64_on_ragged_shapes(cuda, r, t, d, g):
+    args = wgrad_inputs(r, torch.Generator(device=cuda).manual_seed(r * t), t=t, d=d, g=g)
+    want = fp64_wgrad(*args)
+    e_fp32, _ = sgemm_errors(args, want)
+    got = proj_kernel.input_proj_f32_wgrad(*args)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.float32 and a.shape == (g, d) for a in got)
+    err = rel_error(got, want)
+    assert err <= max(2 * e_fp32, 1e-6), f"{err:.3e} against the SGEMMs' {e_fp32:.3e}"
+    # the time order: the backward direction's kernel step s meets x at T-1-s
+    x, dxf, dxb = (a.double() for a in args)
+    want_b = sum(dxb[s].t() @ x[:, t - 1 - s] for s in range(t))
+    torch.testing.assert_close(got[1].double(), want_b, rtol=1e-5, atol=1e-5 * want_b.abs().max().item())
+
+
+def test_wgrad_f32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, dx = torch.zeros(3, 4, 40, device=cuda), torch.zeros(4, 3, 64, device=cuda)
+    before = proj_kernel.input_proj_f32_wgrad.launches
+    with pytest.raises(TypeError):
+        proj_kernel.input_proj_f32_wgrad(x.to(torch.bfloat16), dx, dx)
+    with pytest.raises(ValueError, match="% 4"):
+        proj_kernel.input_proj_f32_wgrad(torch.zeros(3, 4, 42, device=cuda), dx, dx)
+    with pytest.raises(ValueError, match="aligned"):
+        proj_kernel.input_proj_f32_wgrad(x, torch.zeros(4 * 3 * 64 + 1, device=cuda)[1:].view(4, 3, 64), dx)
+    with pytest.raises(ValueError, match="aligned"):
+        proj_kernel.input_proj_f32_wgrad(torch.zeros(3 * 4 * 40 + 1, device=cuda)[1:].view(3, 4, 40), dx, dx)
+    with pytest.raises(ValueError, match="contiguous"):
+        proj_kernel.input_proj_f32_wgrad(x, torch.zeros(3, 4, 64, device=cuda).transpose(0, 1), dx)
+    with pytest.raises(RuntimeError, match="autograd"):
+        proj_kernel.input_proj_f32_wgrad(x, dx.clone().requires_grad_(), dx)
+    assert proj_kernel.input_proj_f32_wgrad.launches == before
+
+
 def test_mm_f32_keeps_an_fp32_output(rs, cuda):
     """The streamed product on the card: bf16 operands, fp32 sums and an
     fp32 output, equal to the fp32 product of the rounded operands up to the
@@ -957,8 +1023,8 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
     checksum and the eval step's predictions against one process's step on
     the same global batches, the second with 3 of 8 rows padded (the fp32
     train limits: 1e-4 relative); kernels 3 and 4 launch 3 times a step on
-    each rank and kernel 7 once, kernels 1 and 2 three and two times an
-    eval forward and kernel 7 once."""
+    each rank and kernels 7 and 8 once, kernels 1 and 2 three and two times
+    an eval forward and kernel 7 once."""
     from dualvgr_tpu_torch.parallel import dryrun
 
     batches = dryrun.tiny_batches(1, seed=11) + dryrun.tiny_batches(1, seed=12, pad=3)
@@ -969,5 +1035,5 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
         np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-4)
         np.testing.assert_allclose(r["checksum"], one["checksum"], rtol=1e-4)
         np.testing.assert_array_equal(r["preds"], one["preds"])
-        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0, 2) == one["launches_train"]
-        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0, 1) == one["launches_eval"]
+        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0, 2, 2) == one["launches_train"]
+        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0, 1, 0) == one["launches_eval"]
