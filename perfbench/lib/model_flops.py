@@ -1,9 +1,8 @@
 """Matmul FLOPs (2 x multiply-adds) of one DualVGR forward and train step
-per question: a frozen copy of the arithmetic the program states in
-``dualvgr_tpu_torch/utils/flops.py``, kept here so that a change to the
-program cannot move the yardstick. Elementwise, softmax and norm work is
-left out; a train step counts three forwards (the forward and the two
-products of the backward).
+per question. ``forward_flops`` is a frozen copy of the arithmetic the
+program states in ``dualvgr_tpu_torch/utils/flops.py``, kept here so that
+a change to the program cannot move the yardstick. Elementwise, softmax
+and norm work is left out.
 
 Symbols: V vision_dim, D module_dim, W word_dim, A num_answers, C clips
 (num_of_nodes), F frames per clip, T question tokens, U unit_layers,
@@ -37,8 +36,44 @@ def forward_flops(*, vision_dim, module_dim, word_dim, num_answers, num_of_nodes
     return total
 
 
+def untaken_input_grad_flops(*, vision_dim, module_dim, frames_per_clip, num_of_nodes, **_) -> float:
+    """The products of the forward whose input gradient the port's train
+    step never takes, per question:
+
+    - the appearance BiLSTM's input projection, both directions: its x is
+      tanh(dropout(features)) and the features are leaves
+      (``dualvgr_tpu_torch/train_lib.py:173``); the kernel path's op gives x
+      no gradient (``ops/lstm_train.py:135``) and refuses an x that requires
+      one (``ops/lstm_train.py:143``), and autograd on the plain path takes
+      none for a tensor that needs none;
+    - the motion Linear (``models/encoders.py:146``), on the same leaves;
+    - the first step's recurrent product of each BiLSTM sequence and
+      direction, whose input is the initial state, a constant zero: kernel 4
+      skips it (``csrc/bilstm_train_bwd.cu:270``), and on the plain path the
+      state starts as a tensor that needs no gradient
+      (``ops/lstm_kernel.py:226``). Four sequences a question (two question
+      BiLSTMs, two directions), two a clip.
+    """
+    V, D, F, C = vision_dim, module_dim, frames_per_clip, num_of_nodes
+    h = D // 2
+    appearance_proj = 2 * C * 2.0 * F * V * 4 * h
+    motion = 2.0 * C * V * D
+    first_steps = (4 + 2 * C) * 2.0 * h * 4 * h
+    return appearance_proj + motion + first_steps
+
+
 def train_flops(**kw) -> float:
-    return 3.0 * forward_flops(**kw)
+    """The work of one train step per question as the port does it: the
+    forward; each weight's gradient, a product as large as its forward
+    product; and the input gradients the backward takes, which are those of
+    every product but ``untaken_input_grad_flops``'. This departs from
+    ``dualvgr_tpu_torch/utils/flops.py::dualvgr_train_flops``, which counts
+    three forwards (the JAX package's count, held equal to it by the
+    program's tests): that count adds work the port never does, 34% more
+    than the step's at MSRVTT-QA's sizes, so a share of the card's peak
+    read against it could pass 100%. The auxiliary losses' grams are left
+    out, as in the forward."""
+    return 3.0 * forward_flops(**kw) - untaken_input_grad_flops(**kw)
 
 
 def dims_of(config: dict) -> dict:

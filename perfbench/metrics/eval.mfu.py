@@ -1,7 +1,7 @@
 """eval.mfu: the forward FLOPs of the questions answered in the traced window
-over the window's seconds on the host's clock and the card's fp32 peak, in
-percent. The host's clock, because the profiler's can put the window's
-edges a tenth of a second off."""
+over the window's seconds on the host's clock and the card's fp32 peak
+(``lib/peaks.py``: 3xTF32, 165 TFLOP/s), in percent. The host's clock,
+because the profiler's can put the window's edges a tenth of a second off."""
 
 from perfbench.lib.model_flops import dims_of, forward_flops
 from perfbench.lib.peaks import PEAK_FLOPS

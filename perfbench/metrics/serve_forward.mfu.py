@@ -1,5 +1,6 @@
 """serve_forward.mfu: the forward FLOPs of the served batches' real rows over
-the predict fn's device time and the card's fp32 peak, in percent."""
+the predict fn's device time and the card's fp32 peak
+(``lib/peaks.py``: 3xTF32, 165 TFLOP/s), in percent."""
 
 from perfbench.lib.model_flops import dims_of, forward_flops
 from perfbench.lib.peaks import PEAK_FLOPS

@@ -1,7 +1,9 @@
-"""train.mfu: the model FLOPs of the traced window's train steps (three
-forwards a question, ``lib/model_flops.py``) over the window's seconds on
-the host's clock and the card's fp32 peak, in percent. The host's clock,
-because the profiler's can put the window's edges a tenth of a second off."""
+"""train.mfu: the model FLOPs of the traced window's train steps (the
+forward, the weight gradients and the input gradients the port takes, a
+question; ``lib/model_flops.py::train_flops``) over the window's seconds on
+the host's clock and the card's fp32 peak (``lib/peaks.py``: 3xTF32, 165
+TFLOP/s), in percent. The host's clock, because the profiler's can put the
+window's edges a tenth of a second off."""
 
 from perfbench.lib.model_flops import dims_of, train_flops
 from perfbench.lib.peaks import PEAK_FLOPS

@@ -27,7 +27,7 @@ def test_new_files_are_found_by_name():
             import re
             PATTERN = re.compile("probe_kernel")
             def launches(step, model):
-                return [(67e9, 0.0)]
+                return [(165e9, 0.0)]
         '''))
         (bench / "metrics" / "k9_probe_roofline.eval.py").write_text(textwrap.dedent('''
             import importlib.util, pathlib

@@ -13,7 +13,7 @@ import torch
 
 from perfbench.lib import common
 
-ARGS = ["--workload", "msvd-qa.eval", "--seed", "4294967311", "--seconds", "1", "--trace", "0"]
+ARGS = ["--workload", "msvd-qa.train", "--seed", "4294967311", "--seconds", "1", "--trace", "0"]
 
 
 def run(cwd, env=None):

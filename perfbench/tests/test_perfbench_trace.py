@@ -37,7 +37,7 @@ def test_readers_on_a_trace_by_hand():
     assert read("loader.wait_ms.train") == pytest.approx(2.0)
     assert read("train_step.ms") == pytest.approx(85.0)
     assert read("device.idle_share.train") == pytest.approx(100 * (1 - 1.5 / 1.9))
-    assert read("train.mfu") == pytest.approx(100 * 12.95847648e9 * 2560 / 2.0 / 67e12)
+    assert read("train.mfu") == pytest.approx(100 * 9.644452032e9 * 2560 / 2.0 / 165e12)
     assert read("k3_train_fwd_roofline.train") is None
 
 

@@ -173,8 +173,8 @@ def test_the_readers_read_the_programs_spans_and_counters():
                "spans": {"extract.upload": [0.1, 0.3]}}
     trace = _trace(program)
     flops = 512 * resnet101_flops() + 32 * resnext101_3d_flops()
-    assert common.reader("extract.mfu.predict")(trace) == pytest.approx(100 * flops / 2.0 / 67e12)
-    assert common.reader("extract.mfu.predict")(trace) == pytest.approx(100 * 2 * 4.2994117e12 / 2.0 / 67e12)
+    assert common.reader("extract.mfu.predict")(trace) == pytest.approx(100 * flops / 2.0 / 165e12)
+    assert common.reader("extract.mfu.predict")(trace) == pytest.approx(100 * 2 * 4.2994117e12 / 2.0 / 165e12)
     assert common.reader("extract.upload_gbps.predict")(trace) == pytest.approx(10.0)
     assert common.reader("predict_call.ms")(trace) == pytest.approx(155.0)
     assert common.reader("device.idle_share.predict")(trace) == pytest.approx(25.0)
