@@ -58,11 +58,12 @@ streaming path):
     rows padded: after 2 warm-up steps, one step's loss and per-module
     gradient norms, kernel path against plain path with dropout off; then
     5 timed steps with dropout on (ms per step, QA/s, losses, peak memory),
-    the training path whose launches of kernels 3 and 4 are counted (3 each
-    per step, none of kernels 1, 2, 5 and 6); one step under the profiler;
+    the training path whose launches of kernels 3, 4 and 9 are counted (3
+    each per step, none of kernels 1, 2, 5 and 6); one step under the
+    profiler;
 11. train bf16: the same in bf16, the agreement against the fp32 kernel
     path from the same weights; launches per step: kernel 6 once (no
-    tanh), kernels 3 and 4 three times each;
+    tanh), kernels 3, 4 and 9 three times each;
 11a. gcn train: phase train on the GCN model (kernels 3 and 4 three times
     a step, the agreement after 2 warm-up steps);
 11b. batch_gats: the GAT flagship with the four banks of a graph layer
@@ -100,6 +101,15 @@ streaming path):
     replaces, which is also the library yardstick), the bound (three
     products at 495 TFLOP/s TF32), TFLOP/s, the share of the bound, the SM
     clock and power under load, one launch a call;
+12c. whh_grad_f32: kernel 9 at the appearance BiLSTM's shapes of the same
+    cells (dW_hh over K = R*T from hprev (T, R, 2 x 384) and dgates (T, R,
+    2 x 1,536)) and at a question BiLSTM's (256 x 24): its relative
+    Frobenius error against the fp64 product beside the library SGEMMs' in
+    fp32 and in TF32 (at most the fp32 one at the cells' shapes, TF32's
+    beyond twice that); ms, the plain version's ms (the two SGEMMs it
+    replaces, the library yardstick too), the split count of K, the bound
+    (three products at 495 TFLOP/s TF32), TFLOP/s, the share of the bound,
+    the SM clock and power under load, one launch a call;
 13. cli: the CLIs on an MSRVTT-QA-shaped dataset built in memory at the
     flagship width (384 videos, 805 MB of appearance and 50 MB of motion
     in FeatureStores; 640 training, 256 validation and 300 test
@@ -236,7 +246,8 @@ from dualvgr_tpu_torch import validate as tvalidate
 from dualvgr_tpu_torch import predict as tpredict
 from dualvgr_tpu_torch.bench import extraction_bench, proj_probe
 from dualvgr_tpu_torch.bench.proj_kernel_ab import (
-    baddbmm_errors, clocks_under_load, f32_inputs, fp64_product, fp64_wgrad, rel_error, sgemm_errors, wgrad_inputs,
+    baddbmm_errors, clocks_under_load, f32_inputs, fp64_product, fp64_wgrad, fp64_whh, rel_error, sgemm_errors,
+    wgrad_inputs, whh_inputs, whh_sgemm_errors,
 )
 from dualvgr_tpu_torch.bench.timing import time_ms
 from dualvgr_tpu_torch.bench.zoo_check import TOL as TOL_ZOO
@@ -248,7 +259,7 @@ from dualvgr_tpu_torch.data.vocab import load_vocab
 from dualvgr_tpu_torch.export import export_serving, graph_ops, load_artifact, model_from_checkpoint, save_artifact
 from dualvgr_tpu_torch.ops import COUNTED_KERNELS, _build, launch_counts
 from dualvgr_tpu_torch.ops.dropout import Dropout
-from dualvgr_tpu_torch.ops import gat_kernel, proj_kernel
+from dualvgr_tpu_torch.ops import gat_kernel, proj_kernel, whh_grad_kernel
 from dualvgr_tpu_torch.ops.gat_kernel import gat_cycle, gat_cycle_reference
 from dualvgr_tpu_torch.ops.lstm import time_major_input_proj
 from dualvgr_tpu_torch.ops.lstm_kernel import (
@@ -262,6 +273,7 @@ from dualvgr_tpu_torch.ops.proj_kernel import (
     input_proj_both, input_proj_both_reference, input_proj_f32, input_proj_f32_reference, input_proj_f32_wgrad,
     input_proj_f32_wgrad_reference, input_proj_one, input_proj_one_reference, tanh_to_bf16, tanh_to_bf16_reference,
 )
+from dualvgr_tpu_torch.ops.whh_grad_kernel import whh_grad_f32, whh_grad_f32_reference, whh_grad_plan
 from dualvgr_tpu_torch.parallel.mesh import prefetch_to_device
 from dualvgr_tpu_torch.preprocess.features import (
     build_appearance_extractor, build_motion_extractor, clips_from_frames,
@@ -285,8 +297,8 @@ TRAIN_PAD, ALPHA, BETA = 6, 1.0, 1e-8
 TRAIN_CFG = "configs/msrvtt_qa_DualVGR_16.yml"
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # H100 SXM published peaks: fp32 outside the tensor cores, dense bf16 on
-# the tensor cores (kernels 5 and 6), dense TF32 on them (kernels 7 and 8's
-# three products), and HBM3 bandwidth
+# the tensor cores (kernels 5 and 6), dense TF32 on them (kernels 7, 8 and
+# 9's three products), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -295,6 +307,8 @@ BF16 = torch.bfloat16
 PROJ_ROWS = (BATCH * CLIPS, SERVE_BATCH * CLIPS)  # the projection's R at batch 256 and 32
 # kernels 7 and 8's R at the train cells (batch 256 x 16, 8 and 20 clips of 16 frames)
 PROJ_F32_ROWS = {"msrvtt-qa": BATCH * 16, "msvd-qa": BATCH * 8, "svqa": BATCH * 20}
+# kernel 9's (R, T) at the train cells' appearance BiLSTMs and at a question BiLSTM
+WHH_SHAPES = {**{cell: (rows, FRAMES) for cell, rows in PROJ_F32_ROWS.items()}, "question": (BATCH, QLEN)}
 # tolerances, fp32 without TF32:
 #   recurrence: 16-24 steps of tanh/sigmoid-bounded states; only the sum
 #   order of the 384-long products differs -> 1e-4 absolute
@@ -452,6 +466,8 @@ def phase_build():
           f"{proj_kernel.f32_library_smem_bytes()} bytes", flush=True)
     print(f"  wgrad_f32.cu: wgrad_f32_kernel dynamic shared memory "
           f"{proj_kernel.f32_wgrad_library_smem_bytes()} bytes", flush=True)
+    print(f"  whh_grad_f32.cu: whh_grad_kernel dynamic shared memory "
+          f"{whh_grad_kernel.library_smem_bytes()} bytes", flush=True)
 
 
 def flagship_inputs(batch, gen):
@@ -614,13 +630,14 @@ def phase_gat(model, app, mot, q, qlen):
 
 # launches per fp32 forward and per bf16 forward (kernels 1-6, the tanh
 # pass, which kernel 6 runs on fp32 x, then kernel 7, the fp32 appearance
-# projection, and kernel 8, its weight gradient); a GCN model never runs
-# kernel 2
-EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0, 1, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1, 0, 0)}
-GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0, 1, 0), "bfloat16": (3, 0, 0, 0, 0, 1, 1, 0, 0)}
+# projection, kernel 8, its weight gradient, and kernel 9, the BiLSTMs'
+# recurrent weight gradient); a GCN model never runs kernel 2
+EVAL_LAUNCHES = {"float32": (3, 2, 0, 0, 0, 0, 0, 1, 0, 0), "bfloat16": (3, 2, 0, 0, 0, 1, 1, 0, 0, 0)}
+GCN_EVAL_LAUNCHES = {"float32": (3, 0, 0, 0, 0, 0, 0, 1, 0, 0), "bfloat16": (3, 0, 0, 0, 0, 1, 1, 0, 0, 0)}
 # launches per train step: kernels 7 and 8 once each in fp32, kernel 6 (on
-# bf16 x, no tanh pass) once in bf16
-TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0, 1, 1), "bfloat16": (0, 0, 3, 3, 0, 1, 0, 0, 0)}
+# bf16 x, no tanh pass) once in bf16, kernel 9 once a trainable BiLSTM in
+# both (its operands are fp32 in both)
+TRAIN_LAUNCHES = {"float32": (0, 0, 3, 3, 0, 0, 0, 1, 1, 3), "bfloat16": (0, 0, 3, 3, 0, 1, 0, 0, 0, 3)}
 
 
 def reset_counts():
@@ -1154,7 +1171,7 @@ def phase_train(batch, compute_dtype="float32", graph_module="GAT"):
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=f"bilstm_train_fwd:{launches[2]},bilstm_train_bwd:{launches[3]},"
                  f"bilstm_recurrence:{launches[0]},gat_cycle:{launches[1]},input_proj_both:{launches[5]},"
-                 f"input_proj_f32:{launches[7]},input_proj_f32_wgrad:{launches[8]}")
+                 f"input_proj_f32:{launches[7]},input_proj_f32_wgrad:{launches[8]},whh_grad_f32:{launches[9]}")
     profile_run(f"{tag} profile", lambda: train_step(state, batch, alpha=ALPHA, beta=BETA))
     return launches, ms
 
@@ -1362,6 +1379,56 @@ def phase_wgrad_f32():
         cases.append(dict(shape=f"{cell}_R{r}", err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=plain_ms, bound_ms=bms, flops=3 * product, bytes=nbytes))
         del args, x, dxf
+        torch.cuda.empty_cache()
+    return cases
+
+
+@torch.no_grad()
+def phase_whh_grad_f32():
+    """Kernel 9 at the train cells' appearance BiLSTM shapes (R*T = R x 16
+    rows, H 384, 2 x 1,536 gate rows) and at a question BiLSTM's (256 x
+    24): its relative error against the fp64 product beside the library
+    SGEMMs' in fp32 and in TF32 (at most the fp32 one at the cells' shapes;
+    TF32's beyond twice it), ms, the plain version's ms (the two SGEMMs it
+    replaces, the library yardstick too), the splits of K, the bound (the
+    three products at the TF32 tensor-core peak, or the bytes: hprev and
+    the dgates once, dW), TFLOP/s of the product and the share of the
+    bound, one launch a call. Returns the cases, msrvtt-qa's first."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = []
+    for shape, (rows, steps) in WHH_SHAPES.items():
+        args = whh_inputs(rows, gen, t=steps)
+        hprev, dxf, _ = args
+        want = fp64_whh(*args)
+        e_fp32, e_tf32 = whh_sgemm_errors(args, want)
+        reset_counts()
+        got = whh_grad_f32(*args)
+        torch.cuda.synchronize()
+        check(launch_counts()[9] == 1, f"kernel 9 launched {launch_counts()[9]} times for one call")
+        err = rel_error(got, want)
+        abs_err = max((a.double() - b).abs().max().item() for a, b in zip(got, want))
+        bound = e_fp32 if shape in PROJ_F32_ROWS else max(e_fp32, 1e-6)
+        check(err <= bound, f"kernel 9 at {shape}: error {err:.3e} against the SGEMMs' fp32 {e_fp32:.3e}")
+        check(e_tf32 > 2 * e_fp32, f"the SGEMMs in TF32 at {shape}: {e_tf32:.3e} within 2x fp32's {e_fp32:.3e}")
+        del got, want
+        t, r, c = hprev.shape
+        h, g = c // 2, dxf.shape[-1]
+        ms = time_ms(lambda: whh_grad_f32(*args), 10)
+        plain_ms = time_ms(lambda: whh_grad_f32_reference(*args), 3)
+        product = 2 * r * t * h * 2 * g
+        nbytes = hprev.numel() * 4 + 2 * dxf.numel() * 4 + 2 * h * g * 4  # hprev, the dgates, dW
+        bms, by = bound_ms(3 * product, nbytes, PEAK_TF32_FLOPS)
+        mhz, watts, limit = clocks_under_load(lambda: whh_grad_f32(*args))
+        say(f"whh_grad_f32 {shape}", R=r, T=t, H=h, G=g,
+            splits=whh_grad_plan(r, t, h, whh_grad_kernel.sm_count(hprev.device)), rel_err=f"{err:.3e}",
+            max_abs_err=f"{abs_err:.3e}", sgemm_fp32_rel_err=f"{e_fp32:.3e}", sgemm_tf32_rel_err=f"{e_tf32:.3e}",
+            err_over_fp32=f"{err / e_fp32:.2f}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bms:.4f}", bound_by=by, product_tflops=f"{product / ms / 1e9:.1f}",
+            tensor_core_tflops=f"{3 * product / ms / 1e9:.1f}", share_of_bound=f"{bms / ms:.3f}",
+            sm_mhz=f"{mhz:.0f}", power_w=f"{watts:.1f}", power_limit_w=limit, launches=1)
+        cases.append(dict(shape=f"{shape}_R{r}_T{t}", err=abs_err, rel_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=plain_ms, bound_ms=bms, flops=3 * product, bytes=nbytes))
+        del args, hprev, dxf
         torch.cuda.empty_cache()
     return cases
 
@@ -2776,6 +2843,7 @@ def main():
     torch.cuda.empty_cache()
     k7_cases = phase_proj_f32()
     k8_cases = phase_wgrad_f32()
+    k9_cases = phase_whh_grad_f32()
     extractors = phase_extract()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
         raw, stores, cli_train, cli_val, accs, preds, first = phase_cli(root, model_ms)
@@ -2796,7 +2864,7 @@ def main():
     # 5 and 6 are rows per call at R = 4096 (batch 256), R = 512 (batch 32)
     # listed beside it, bound at the bf16 tensor-core peak; kernel 7 a row
     # per call at msrvtt-qa's train step, the other cells beside it, bound
-    # at the TF32 tensor-core peak (three products); kernel 8 likewise.
+    # at the TF32 tensor-core peak (three products); kernels 8 and 9 likewise.
     eval_shapes = "appearance + question_outputs + question_final"
 
     def cli_launches(i):
@@ -2897,6 +2965,18 @@ def main():
                      "transposing copies it replaces; launches: phase train's 5 fp32 steps", library=True,
                      side_cases=k8_cases[1:], peak=PEAK_TF32_FLOPS, **ddp_launches_of(8), **cli_launches(8),
                      **gcn_launches(8), rel_err={c["shape"]: c["rel_err"] for c in k8_cases}),
+        kernel_entry("whh_grad_f32", "dualvgr_tpu_torch/csrc/whh_grad_f32.cu",
+                     "none: the trainable BiLSTM's dW_hh, which the JAX package leaves to XLA "
+                     "(dualvgr_tpu/ops/lstm_pallas_train.py:274-277)",
+                     train_launches[9], k9_cases[:1],
+                     "one call at msrvtt-qa's appearance BiLSTM (R*T = 65,536, H 384), the other cells and a "
+                     "question BiLSTM (256 x 24) beside; bound: the three products at 495 TFLOP/s TF32; plain "
+                     "and library: the two SGEMMs it replaces; launches: phase train's 5 fp32 steps (3 a step: "
+                     "the appearance and both question BiLSTMs)", library=True, side_cases=k9_cases[1:],
+                     peak=PEAK_TF32_FLOPS, launches_train_bf16=train_bf16_launches[9],
+                     launches_serve=serve_launches[9], launches_serve_bf16=serve_bf16_launches[9],
+                     **ddp_launches_of(9), **cli_launches(9), **deploy_launches(9), **gcn_launches(9),
+                     launches_predict=predict_launches[9], rel_err={c["shape"]: c["rel_err"] for c in k9_cases}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

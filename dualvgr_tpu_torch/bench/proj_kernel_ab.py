@@ -1,6 +1,6 @@
-"""A/B timing of build variants of the projection GEMMs: kernel 6 (``csrc/input_proj.cu``, bf16), kernel 7 (``csrc/input_proj_f32.cu``, 3xTF32) and kernel 8 (``csrc/wgrad_f32.cu``, 3xTF32).
+"""A/B timing of build variants of the BiLSTM's GEMMs: kernel 6 (``csrc/input_proj.cu``, bf16), kernel 7 (``csrc/input_proj_f32.cu``, 3xTF32), kernel 8 (``csrc/wgrad_f32.cu``, 3xTF32) and kernel 9 (``csrc/whh_grad_f32.cu``, 3xTF32).
 
-    python -m dualvgr_tpu_torch.bench.proj_kernel_ab [--kernel 6|7|8]
+    python -m dualvgr_tpu_torch.bench.proj_kernel_ab [--kernel 6|7|8|9]
     python -m dualvgr_tpu_torch.bench.proj_kernel_ab --baseline DIR
 
 Needs one CUDA device and ``nvcc``. Each kernel 6 variant is the committed
@@ -27,7 +27,16 @@ scratch left by an earlier call) or the promotion's adds cut; they run
 through ``input_proj_f32_wgrad`` at the same rows (``wgrad_inputs``),
 each with its error against the fp64 product (``fp64_wgrad``) beside the
 library SGEMMs' in fp32 and in TF32, interleaved with the plain version
-(the two SGEMMs after their transposing copies). Every variant is compiled by
+(the two SGEMMs after their transposing copies). Each kernel 9 variant is
+its committed source with a 3-stage ring or, for timing only, with the
+product and reduce launches cut (hprev's split pass alone) or the pass and
+reduce cut (the product alone); they run through ``whh_grad_f32`` at the
+appearance BiLSTM's R*T (H 384) and at a question BiLSTM's (256 x 24;
+``whh_inputs``), each with its error against the fp64 product
+(``fp64_whh``) beside the library SGEMMs' in fp32 and in TF32, interleaved
+with the plain version (the two SGEMMs), and then the committed build at
+each split count of K (``K9_SPLITS``, the plan's marked) with its time and
+error. Every variant is compiled by
 ``ops/_build.py::build_variants`` and timed with CUDA events, the variants
 interleaved (forward order, then reversed) in one process on one card.
 Prints each variant's registers and the compiler's warnings, then per
@@ -103,6 +112,7 @@ K7_VARIANTS = {
 # the train cells' rows R*T = R x 16 (msrvtt-qa, msvd-qa and its eval, svqa)
 K7_ROWS = (4096, 2048, 5120)
 T, D, G = 16, 2048, 1536
+H = G // 4  # the BiLSTMs' hidden size
 
 
 def apply_changes(text: str, changes: dict, source: str = K7_SOURCE) -> str:
@@ -158,19 +168,24 @@ def rel_error(got, want):
     return (num / den) ** 0.5
 
 
-def baddbmm_errors(args, want):
-    """``torch.baddbmm``'s (the plain version's) error in fp32 and in TF32."""
-    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32_reference
-
+def library_errors(reference, args, want):
+    """A plain version's error, run by the library in fp32 and in TF32."""
     before = torch.backends.cuda.matmul.allow_tf32
     try:
         errs = []
         for tf32 in (False, True):
             torch.backends.cuda.matmul.allow_tf32 = tf32
-            errs.append(rel_error(input_proj_f32_reference(*args), want))
+            errs.append(rel_error(reference(*args), want))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     return tuple(errs)
+
+
+def baddbmm_errors(args, want):
+    """``torch.baddbmm``'s (the plain version's) error in fp32 and in TF32."""
+    from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32_reference
+
+    return library_errors(input_proj_f32_reference, args, want)
 
 
 def wgrad_inputs(rows, gen, t=T, d=D, g=G):
@@ -196,15 +211,7 @@ def sgemm_errors(args, want):
     in TF32."""
     from dualvgr_tpu_torch.ops.proj_kernel import input_proj_f32_wgrad_reference
 
-    before = torch.backends.cuda.matmul.allow_tf32
-    try:
-        errs = []
-        for tf32 in (False, True):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            errs.append(rel_error(input_proj_f32_wgrad_reference(*args), want))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-    return tuple(errs)
+    return library_errors(input_proj_f32_wgrad_reference, args, want)
 
 
 K8_SOURCE = "wgrad_f32.cu"
@@ -263,6 +270,110 @@ def run_k8(workdir: Path):
                     else f", error {errs[name]:.3e} ({errs[name] / e32:.2f}x)")
             print(f"[k8 R{rows}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
                   + f" ms, {3 * flops / min(ms) / 1e9:.1f} TFLOP/s on the tensor cores{note}", flush=True)
+        del args, want
+
+
+def whh_inputs(rows, gen, t=T, h=H):
+    """Kernel 9's inputs at R = ``rows`` on ``gen``'s device: hprev (T, R,
+    2H) of LSTM states, o * tanh(c) with o uniform in (0, 1) and c normal,
+    and each direction's dgates (T, R, 4H) of N(0, 1e-6), about the size of
+    a train step's."""
+    dev = gen.device
+    hprev = torch.tanh(torch.randn(t, rows, 2 * h, device=dev, generator=gen))
+    hprev *= torch.rand(t, rows, 2 * h, device=dev, generator=gen)
+    dxf, dxb = (torch.randn(t, rows, 4 * h, device=dev, generator=gen) * 1e-3 for _ in range(2))
+    return hprev, dxf, dxb
+
+
+def fp64_whh(hprev, dxf, dxb):
+    """Kernel 9's function in fp64: ``(dw_f, dw_b)``, (H, 4H) each."""
+    h = hprev.shape[-1] // 2
+    h64 = hprev.double()
+    return (torch.einsum("trh,trg->hg", h64[..., :h], dxf.double()),
+            torch.einsum("trh,trg->hg", h64[..., h:], dxb.double()))
+
+
+def whh_sgemm_errors(args, want):
+    """Kernel 9's plain version's (the library SGEMMs') error in fp32 and
+    in TF32."""
+    from dualvgr_tpu_torch.ops.whh_grad_kernel import whh_grad_f32_reference
+
+    return library_errors(whh_grad_f32_reference, args, want)
+
+
+K9_SOURCE = "whh_grad_f32.cu"
+K9_RING = "constexpr int kStages = 4;"
+K9_PASS = "hprev_split_kernel<<<pass_grid, kPassThreads, 0, s>>>("
+K9_PRODUCT = "whh_grad_kernel<<<grid, kThreads, kSmemBytes, s>>>("
+K9_REDUCE = "whh_grad_reduce_kernel<<<reduce_grid, kPassThreads, 0, s>>>("
+# name -> ({committed line: variant line}, timing only); "library" is no
+# build: the plain version, the two SGEMMs
+K9_VARIANTS = {
+    "committed": ({}, False),
+    "3stages": ({K9_RING: "constexpr int kStages = 3;"}, False),
+    "pass_alone": ({K9_PRODUCT: "if (false) " + K9_PRODUCT, K9_REDUCE: "if (false) " + K9_REDUCE}, True),
+    "product_alone": ({K9_PASS: "if (false) " + K9_PASS, K9_REDUCE: "if (false) " + K9_REDUCE}, True),
+}
+# (R, T) of the appearance BiLSTM at the train cells and of the question
+# BiLSTM at msrvtt-qa's batch (256 questions of 24 tokens), H 384
+K9_SHAPES = {"msrvtt-qa": (4096, T), "msvd-qa": (2048, T), "svqa": (5120, T), "question": (256, 24)}
+K9_SPLITS = (1, 2, 4, 6, 7, 11, 22, 33)
+
+
+def run_k9(workdir: Path):
+    """Kernel 9's variants and the library at the train cells' appearance
+    rows and the question shape, in turns, then the committed build at each
+    split count of ``K9_SPLITS`` (the plan's marked); the cuts say where its
+    time goes."""
+    from dualvgr_tpu_torch.ops import whh_grad_kernel
+    from dualvgr_tpu_torch.ops.whh_grad_kernel import whh_grad_f32, whh_grad_f32_reference
+
+    workdir.mkdir()
+    text = (_build.CSRC / K9_SOURCE).read_text()
+    built = _build.build_variants(K9_SOURCE, {name: {K9_SOURCE: apply_changes(text, changes, K9_SOURCE)}
+                                              for name, (changes, _) in K9_VARIANTS.items()}, workdir)
+    for name, (_, out) in built.items():
+        report(f"k9 {name}", out)
+    names = ["library", *K9_VARIANTS]
+    order = names + names[::-1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, (rows, t) in K9_SHAPES.items():
+        args = whh_inputs(rows, gen, t=t)
+        want = fp64_whh(*args)
+        e32, e_tf32 = whh_sgemm_errors(args, want)
+        times, errs = {}, {}
+        for name in order:
+            if name == "library":
+                times.setdefault(name, []).append(time_ms(lambda: whh_grad_f32_reference(*args), 5))
+                continue
+            with _build.using(K9_SOURCE, built[name][0]):
+                got = whh_grad_f32(*args)
+                torch.cuda.synchronize()
+                if not K9_VARIANTS[name][1]:
+                    errs[name] = rel_error(got, want)
+                del got
+                times.setdefault(name, []).append(time_ms(lambda: whh_grad_f32(*args), 10))
+        flops = 2 * rows * t * H * 2 * 4 * H
+        planned = whh_grad_kernel.whh_grad_plan(rows, t, H, whh_grad_kernel.sm_count(args[0].device))
+        with _build.using(K9_SOURCE, built["committed"][0]):
+            mhz, watts, _ = clocks_under_load(lambda: whh_grad_f32(*args))
+            splits = {}
+            for s in sorted({*K9_SPLITS, planned}):
+                if s <= t * -(-rows // 32):
+                    got = whh_grad_kernel._whh_cuda(*args, splits=s)
+                    splits[s] = (time_ms(lambda: whh_grad_kernel._whh_cuda(*args, splits=s), 10), rel_error(got, want))
+                    del got
+        print(f"[k9 {shape} R{rows} T{t}] library SGEMMs error {e32:.3e} (fp32), {e_tf32:.3e} (TF32); committed "
+              f"under load: SM clock {mhz:.0f} MHz, power {watts:.1f} W", flush=True)
+        for name, ms in times.items():
+            note = (" (the two SGEMMs)" if name == "library"
+                    else " (timing only)" if K9_VARIANTS[name][1]
+                    else f", error {errs[name]:.3e} ({errs[name] / e32:.2f}x)")
+            print(f"[k9 {shape}] {name}: " + " / ".join(f"{m:.4f}" for m in ms)
+                  + f" ms, {3 * flops / min(ms) / 1e9:.1f} TFLOP/s on the tensor cores{note}", flush=True)
+        print(f"[k9 {shape}] splits (ms, error): " + ", ".join(
+            f"{s}{'*' if s == planned else ''}: {ms:.4f}, {err:.3e}" for s, (ms, err) in splits.items())
+            + " (* the plan's)", flush=True)
         del args, want
 
 
@@ -345,7 +456,7 @@ def measure():
 @torch.no_grad()
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("6", "7", "8"), help="only this kernel's variants")
+    ap.add_argument("--kernel", choices=("6", "7", "8", "9"), help="only this kernel's variants")
     ap.add_argument("--baseline", type=Path, help="a checkout of an earlier commit to time kernel 6 against")
     ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -360,6 +471,8 @@ def main():
         return
     _build.BUILD_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        if args.kernel in (None, "9"):
+            run_k9(Path(tmp) / "k9")
         if args.kernel in (None, "8"):
             run_k8(Path(tmp) / "k8")
         if args.kernel in (None, "7"):

@@ -1,14 +1,16 @@
-// What the tensor-core GEMMs of the input projection share: kernel 6
-// (input_proj.cu, bf16), kernel 7 (input_proj_f32.cu, 3xTF32) and kernel 8
-// (wgrad_f32.cu, 3xTF32, the projection's weight gradient). All are
-// persistent and warp-specialised: one producer thread keeps a ring of
-// shared-memory stages filled by TMA, each stage's arrival counted in bytes
-// on a "full" mbarrier, and consumer warpgroups hand a stage back on an
-// "empty" mbarrier once the wgmma that read it has retired. The operands
-// that wgmma reads from shared memory lie K-major with the 128-byte
-// swizzle, 128 bytes of K a tile row. Here: the barriers, the copies, the
-// wgmma matrix descriptor, the tensor maps (2-D, and 3-D for kernel 8's
-// per-step boxes), and the 3xTF32 arithmetic of kernels 7 and 8.
+// What the tensor-core GEMMs of the BiLSTM share: kernel 6 (input_proj.cu,
+// bf16), kernel 7 (input_proj_f32.cu, 3xTF32), kernel 8 (wgrad_f32.cu,
+// 3xTF32, the projection's weight gradient) and kernel 9 (whh_grad_f32.cu,
+// 3xTF32, the recurrent weight gradient). All are persistent and
+// warp-specialised: one producer thread keeps a ring of shared-memory
+// stages filled by TMA, each stage's arrival counted in bytes on a "full"
+// mbarrier, and consumer warpgroups hand a stage back on an "empty"
+// mbarrier once the wgmma that read it has retired. The operands that
+// wgmma reads from shared memory lie K-major with the 128-byte swizzle, 128
+// bytes of K a tile row. Here: the barriers, the copies, the wgmma matrix
+// descriptor, the tensor maps (2-D, and 3-D for kernels 8 and 9's per-step
+// boxes), the 3xTF32 arithmetic of kernels 7-9, and kernels 8 and 9's
+// reader of the dgates.
 
 #pragma once
 
@@ -99,7 +101,7 @@ __device__ __forceinline__ void fence_operands(float (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// 3xTF32 (kernels 7 and 8). Each operand a is split into big = tf32(a) and
+// 3xTF32 (kernels 7-9). Each operand a is split into big = tf32(a) and
 // small = tf32(a - big), rounded to nearest, 11 + 11 significant bits that
 // together carry a to about 2^-22 of itself; a product sums small x big +
 // big x small + big x big and drops small x small.
@@ -151,6 +153,60 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint32_t a0, uint32_t
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
+
+// The dgates as wgmma's A operand from registers (kernels 8 and 9): kernel
+// 4's (T, R, 4H) output read in place. The producer's TMA brings a tile of
+// kDgK k rows (rows r of one step) by 128 gates as four boxes of kDgSub
+// gates (128 bytes a k row, 128-byte swizzled, kDgSubBytes apart), and each
+// consumer thread reads its fragments column-wise out of it, which
+// transposes them, and splits them into their TF32 halves itself.
+constexpr int kDgK = 32, kDgSub = 32, kDgSubBytes = kDgK * kDgSub * 4, kDgSteps = kDgK / 8;
+
+// A consumer thread's view of a dgates tile. Its A fragment rows of
+// wgmma m64nNk8 .tf32 are row 16 warp + g + 8h of its warpgroup's 64, h =
+// 0, 1, g = lane / 4; register i of a k8 slice is row h = i & 1, column k
+// = q + 4 (i >> 1), q = lane % 4. Row (warp, h, g) holds gate
+//
+//   32 sub + 4 chunk + (g & 3),  c = 2 warp + h, sub = 2 wg + (c >> 2),
+//                                chunk = 4 (g >> 2) + (c & 3),
+//
+// a bijection onto the warpgroup's 64 gates (boxes 2 wg and 2 wg + 1, 8
+// 16-byte chunks a box). Under the 128-byte swizzle chunk ch of k row k
+// lies at ch ^ (k & 7), so the bank of a read is 4 (chunk ^ (k & 7)) +
+// (g & 3). For one register i, k & 7 = q + 4 (i >> 1): chunk ^ (k & 7)
+// takes bit 2 from g >> 2 and bits 0-1 from (c & 3) ^ q, so the 32 lanes
+// (g, q) read 32 distinct banks.
+struct DgatesReader {
+  int gate[2];  // of rows h = 0, 1, within the tile
+  int off[4];   // byte offset of register i's value in slice 0; slice s is 1024 s further
+
+  __device__ __forceinline__ DgatesReader(int wg, int warp, int lane) {
+    const int g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 2 * warp + h, sub = 2 * wg + (c >> 2), chunk = 4 * (g >> 2) + (c & 3);
+      gate[h] = kDgSub * sub + 4 * chunk + (g & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = q + 4 * half;
+        off[2 * half + h] = sub * kDgSubBytes + k * 128 + ((chunk ^ k) << 4) + (g & 3) * 4;
+      }
+    }
+  }
+
+  // the fragments of the k-block in ``a``, split: f[s][0..3] the big halves
+  // of slice s, f[s][4..7] the small ones
+  __device__ __forceinline__ void load_split(uint32_t (&f)[kDgSteps][8], const uint8_t* a) const {
+#pragma unroll
+    for (int s = 0; s < kDgSteps; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = *reinterpret_cast<const float*>(a + off[i] + s * 8 * 128);
+        f[s][i] = tf32(v);
+        f[s][4 + i] = tf32(v - __uint_as_float(f[s][i]));
+      }
+  }
+};
 
 // cuTensorMapEncodeTiled, taken from the driver at run time, so that the
 // libraries need no link to libcuda

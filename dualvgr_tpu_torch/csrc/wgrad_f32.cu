@@ -34,8 +34,8 @@
 //   swizzled), and each consumer thread reads its fragment column-wise out
 //   of it, which transposes it, and splits it itself. Which gate a
 //   fragment row holds is free (the accumulator's row is the same gate), so
-//   the rows are permuted (Consumer::gate) until a warp's 32 transposed
-//   reads fall on 32 distinct banks under the swizzle.
+//   the rows are permuted (DgatesReader::gate, tma_gemm.cuh) until a
+//   warp's 32 transposed reads fall on 32 distinct banks under the swizzle.
 // - The K walk never straddles a time step: a k-block is 32 rows r of one
 //   step t, and a tile of dW_b reads B at step T-1-t, so the time reversal
 //   lives in the coordinates and in no copy. TMA zero-fills a ragged R per
@@ -101,51 +101,7 @@ __device__ __forceinline__ void tile_origin(int tile, const Params& p, int& dir,
   n0 = (tile % p.n_tiles) * kBN;
 }
 
-// A consumer thread's view of the dgates tile. Its A fragment rows of
-// wgmma m64nNk8 .tf32 are row 16 warp + g + 8h of its warpgroup's 64, h =
-// 0, 1, g = lane / 4; register i of a k8 slice is row h = i & 1, column k
-// = q + 4 (i >> 1), q = lane % 4. Row (warp, h, g) holds gate
-//
-//   32 sub + 4 chunk + (g & 3),  c = 2 warp + h, sub = 2 wg + (c >> 2),
-//                                chunk = 4 (g >> 2) + (c & 3),
-//
-// a bijection onto the warpgroup's 64 gates (boxes 2 wg and 2 wg + 1, 8
-// 16-byte chunks a box). Under the 128-byte swizzle chunk ch of k row k
-// lies at ch ^ (k & 7), so the bank of a read is 4 (chunk ^ (k & 7)) +
-// (g & 3). For one register i, k & 7 = q + 4 (i >> 1): chunk ^ (k & 7)
-// takes bit 2 from g >> 2 and bits 0-1 from (c & 3) ^ q, so the 32 lanes
-// (g, q) read 32 distinct banks.
-struct Consumer {
-  int gate[2];  // of rows h = 0, 1, within the tile
-  int off[4];   // byte offset of register i's value in slice 0; slice s is 1024 s further
-
-  __device__ __forceinline__ Consumer(int wg, int warp, int lane) {
-    const int g = lane / 4, q = lane % 4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = 2 * warp + h, sub = 2 * wg + (c >> 2), chunk = 4 * (g >> 2) + (c & 3);
-      gate[h] = kSub * sub + 4 * chunk + (g & 3);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int k = q + 4 * half;
-        off[2 * half + h] = sub * kSubBytes + k * 128 + ((chunk ^ k) << 4) + (g & 3) * 4;
-      }
-    }
-  }
-
-  // the fragments of the k-block in ``a``, split: f[s][0..3] the big halves
-  // of slice s, f[s][4..7] the small ones
-  __device__ __forceinline__ void load_split(uint32_t (&f)[kSteps][8], const uint8_t* a) const {
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = *reinterpret_cast<const float*>(a + off[i] + s * 8 * 128);
-        f[s][i] = tf32(v);
-        f[s][4 + i] = tf32(v - __uint_as_float(f[s][i]));
-      }
-  }
-};
+static_assert(kBK == kDgK && kSub == kDgSub, "the dgates tile that tma_gemm.cuh's DgatesReader reads");
 
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_f32_kernel(const __grid_constant__ CUtensorMap map_df, const __grid_constant__ CUtensorMap map_db,
@@ -197,7 +153,7 @@ wgrad_f32_kernel(const __grid_constant__ CUtensorMap map_df, const __grid_consta
     // consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32, q = lane % 4;
-    const Consumer me(wg, warp, lane);
+    const DgatesReader me(wg, warp, lane);
     int stage = 0;
     uint32_t phase = 0;
     float d[kAcc], acc[kAcc];

@@ -314,8 +314,10 @@ def kernel_dim_limits(*, vision_dim: int = 2048, module_dim: int = 768, num_of_n
     only there do its limits apply; the projection (kernel 6) and its tanh
     pass only under compute_dtype "bfloat16", on the appearance features
     (D = vision_dim) into 4H gate columns; the fp32 projection (kernel 7)
-    on the same widths under "float32". Each kernel module words its own
-    limits; the model's names for the dims follow in parentheses.
+    on the same widths under "float32". The recurrent weight gradient
+    (kernel 9, ``ops/whh_grad_kernel.py``) takes every H, so it adds no
+    limit. Each kernel module words its own limits; the model's names for
+    the dims follow in parentheses.
     """
     hidden = module_dim // 2
     found = [(lstm_kernel.hidden_limit(hidden), "H = module_dim // 2")]

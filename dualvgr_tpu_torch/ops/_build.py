@@ -75,6 +75,10 @@ ENTRIES = {
         "wgrad_f32_launch": (_I, (_P,) * 6 + (_I,) * 5 + (_P,)),
         "wgrad_f32_smem_bytes": (_I, ()),
     },
+    "whh_grad_f32.cu": {
+        "whh_grad_f32_launch": (_I, (_P,) * 7 + (_I,) * 5 + (_P,)),
+        "whh_grad_f32_smem_bytes": (_I, ()),
+    },
 }
 SOURCES = tuple(ENTRIES)
 _SOURCE_OF = {name: source for source, entries in ENTRIES.items() for name in entries}

@@ -6,9 +6,12 @@ pre-step states and the gate activations) and, in the backward, the
 reverse-time kernel (``bilstm_train_bwd``), which gives the dgates from the
 activations and c_{t-1}. They save the activations, fp32 (2, T, R, 4H), in
 place of the gate inputs, which are then freed after the forward. The
-recurrent weights' gradient ``dW_hh = sum_t h_{t-1}^T dgates`` is one plain
-product per direction over ``(T*R, H)^T @ (T*R, 4H)``, outside the kernel,
-as the JAX package leaves it to XLA (``lstm_pallas_train.py:274-277``).
+recurrent weights' gradient ``dW_hh = sum_t h_{t-1}^T dgates`` of both
+directions is one launch of kernel 9 (``ops/whh_grad_kernel.py::whh_grad_f32``,
+3xTF32 on the tensor cores) on kernel 3's hprev and kernel 4's dgates as
+they lie, where the JAX package leaves it to XLA
+(``lstm_pallas_train.py:274-277``); on CPU tensors its plain version, one
+fp32 product per direction over ``(T*R, H)^T @ (T*R, 4H)``.
 
 * ``BiLSTMTrainable`` (``bilstm_trainable``), the twin of
   ``bilstm_trainable``: the full VJP over the gate inputs and W_hh. The input
@@ -49,15 +52,15 @@ from torch.autograd.function import once_differentiable
 from dualvgr_tpu_torch.ops.lstm_train_kernel import bilstm_train_bwd, bilstm_train_fwd
 from dualvgr_tpu_torch.ops.precision import mm_f32
 from dualvgr_tpu_torch.ops.proj_kernel import input_proj_both, input_proj_f32, input_proj_f32_wgrad
+from dualvgr_tpu_torch.ops.whh_grad_kernel import whh_grad_f32
 
 
 def recurrent_weight_grads(hprev, dxf, dxb):
     """``dW_hh = sum_t h_{t-1}^T dgates`` per direction, (H, 4H) each, from the
-    (T, R, 2H) residuals and the (T, R, 4H) dgates in kernel time."""
-    hidden, g = hprev.shape[-1] // 2, dxf.shape[-1]
-    dwf = hprev[..., :hidden].reshape(-1, hidden).t() @ dxf.reshape(-1, g)
-    dwb = hprev[..., hidden:].reshape(-1, hidden).t() @ dxb.reshape(-1, g)
-    return dwf, dwb
+    (T, R, 2H) residuals and the (T, R, 4H) dgates in kernel time: both
+    directions in one launch of kernel 9 on CUDA tensors, the two plain
+    products on CPU tensors."""
+    return whh_grad_f32(hprev, dxf, dxb)
 
 
 class BiLSTMTrainable(torch.autograd.Function):

@@ -80,7 +80,11 @@ and captured steps and every eval forward); ``proj.tc_f32_wgrad_rows``
 (``ops/proj_kernel.py::input_proj_f32_wgrad``: the rows R*T whose
 ``dW_ih`` kernel 8 sums on the tensor cores, a launch on the card; eager
 and captured steps, so a fp32 train step reads the rows of
-``proj.tc_f32_rows`` in it too); ``extract.videos`` (videos
+``proj.tc_f32_rows`` in it too); ``lstm.tc_f32_whh_rows``
+(``ops/whh_grad_kernel.py::whh_grad_f32``: the rows R*T whose ``dW_hh``
+kernel 9 sums on the tensor cores, a launch on the card: the appearance
+BiLSTM's and both question BiLSTMs' in a train step; eager and captured
+steps); ``extract.videos`` (videos
 with frames handed to ``predict.py::video_features``),
 ``extract.upload_bytes`` (their decoded frames' bytes put on the device),
 ``extract.frames`` and ``extract.clips`` (``preprocess/features.py``: the

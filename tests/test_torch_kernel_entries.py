@@ -20,7 +20,9 @@ import types
 import pytest
 import torch
 
-from dualvgr_tpu_torch.ops import COUNTED_KERNELS, _build, gat_kernel, lstm_kernel, lstm_train_kernel, proj_kernel
+from dualvgr_tpu_torch.ops import (
+    COUNTED_KERNELS, _build, gat_kernel, lstm_kernel, lstm_train_kernel, proj_kernel, whh_grad_kernel,
+)
 
 C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
 TABLE = [(source, name) for source, entries in _build.ENTRIES.items() for name in entries]
@@ -150,6 +152,12 @@ def call_wgrad_f32(gen):
     proj_kernel._wgrad_cuda(x, *dx)
 
 
+def call_whh_grad_f32(gen):
+    hprev = torch.randn(T, R, 2 * H, generator=gen)
+    dx = [torch.randn(T, R, 4 * H, generator=gen) for _ in range(2)]
+    whh_grad_kernel._whh_cuda(hprev, *dx, splits=2)
+
+
 # (what runs, the wrapper that counts its launch or None, the entries it calls in order)
 CALLERS = {
     "bilstm_recurrence": (call_recurrence, lstm_kernel.bilstm_recurrence,
@@ -166,6 +174,7 @@ CALLERS = {
     "input_proj_both": (call_proj_both, proj_kernel.input_proj_both, ["input_proj_launch"]),
     "input_proj_f32": (call_proj_f32, proj_kernel.input_proj_f32, ["input_proj_f32_launch"]),
     "input_proj_f32_wgrad": (call_wgrad_f32, proj_kernel.input_proj_f32_wgrad, ["wgrad_f32_launch"]),
+    "whh_grad_f32": (call_whh_grad_f32, whh_grad_kernel.whh_grad_f32, ["whh_grad_f32_launch"]),
     "bilstm_recurrence_smem": (lambda gen: lstm_kernel.library_smem_bytes("bilstm_recurrence", H), None,
                                ["bilstm_recurrence_smem_bytes"]),
     "bilstm_train_fwd_smem": (lambda gen: lstm_kernel.library_smem_bytes("bilstm_train_fwd", H), None,
@@ -178,6 +187,7 @@ CALLERS = {
     "input_proj_f32_smem": (lambda gen: proj_kernel.f32_library_smem_bytes(), None,
                             ["input_proj_f32_smem_bytes"]),
     "wgrad_f32_smem": (lambda gen: proj_kernel.f32_wgrad_library_smem_bytes(), None, ["wgrad_f32_smem_bytes"]),
+    "whh_grad_f32_smem": (lambda gen: whh_grad_kernel.library_smem_bytes(), None, ["whh_grad_f32_smem_bytes"]),
 }
 LAUNCHERS = [name for name, (_, wrapper, _) in CALLERS.items() if wrapper is not None]
 
@@ -231,6 +241,8 @@ META_CALLS = {
         _meta(R, T, D), _meta(4 * H, D), _meta(4 * H), _meta(4 * H, D), _meta(4 * H)),
     "input_proj_f32_wgrad": lambda: proj_kernel.input_proj_f32_wgrad(
         _meta(R, T, D), _meta(T, R, 4 * H), _meta(T, R, 4 * H)),
+    "whh_grad_f32": lambda: whh_grad_kernel.whh_grad_f32(
+        _meta(T, R, 2 * H), _meta(T, R, 4 * H), _meta(T, R, 4 * H)),
 }
 
 

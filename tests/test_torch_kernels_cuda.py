@@ -13,7 +13,10 @@ relative Frobenius error is at most twice ``torch.baddbmm``'s in fp32,
 and ``baddbmm`` in TF32 falls outside that bound (so the rule tells plain
 TF32 apart); at small ragged shapes within that bound or 1e-6. Kernel 8
 (3xTF32, dW_ih over K = R*T) likewise against the library SGEMMs' fp32
-error.
+error. Kernel 9 (3xTF32, dW_hh over K = R*T split across the SMs) within
+the library SGEMMs' fp32 error itself, on kernels 3 and 4's own hprev and
+dgates at the question shapes with ragged lengths too, and the same bits
+on every run of one input.
 Tolerances: recurrence 1e-4 absolute; graph
 cycle, model outputs and the training backward's gradients
 1e-3 * max(1, max|ref|) (fp32 sums in another order; the backward carries
@@ -33,10 +36,13 @@ import torch
 
 from dualvgr_tpu_torch import build_model
 from dualvgr_tpu_torch.bench.proj_kernel_ab import (
-    baddbmm_errors, f32_inputs, fp64_product, fp64_wgrad, rel_error, sgemm_errors, wgrad_inputs,
+    baddbmm_errors, f32_inputs, fp64_product, fp64_wgrad, fp64_whh, rel_error, sgemm_errors, wgrad_inputs,
+    whh_inputs, whh_sgemm_errors,
 )
 from dualvgr_tpu_torch.bench.proj_probe import compare
-from dualvgr_tpu_torch.ops import _build, gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel
+from dualvgr_tpu_torch.ops import (
+    _build, gat_kernel, lstm_kernel, lstm_train, lstm_train_kernel, precision, proj_kernel, whh_grad_kernel,
+)
 from dualvgr_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -673,6 +679,105 @@ def test_wgrad_f32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert proj_kernel.input_proj_f32_wgrad.launches == before
 
 
+@pytest.mark.parametrize("cell", list(K7_CELLS))
+def test_whh_grad_f32_keeps_fp32_precision_at_the_cells_shapes(cuda, cell):
+    """Kernel 9 at the appearance BiLSTM's K = R*T of each train cell
+    (32,768 to 81,920), H 384: within the library SGEMMs' fp32 error
+    against fp64, which TF32 is not; one launch, R*T rows counted."""
+    rows = K7_CELLS[cell]
+    args = whh_inputs(rows, torch.Generator(device=cuda).manual_seed(rows))
+    want = fp64_whh(*args)
+    e_fp32, e_tf32 = whh_sgemm_errors(args, want)
+    before = whh_grad_kernel.whh_grad_f32.launches
+    trace.enable()
+    got = whh_grad_kernel.whh_grad_f32(*args)
+    torch.cuda.synchronize()
+    trace.disable()
+    assert whh_grad_kernel.whh_grad_f32.launches == before + 1
+    assert trace.counters() == {"lstm.tc_f32_whh_rows": rows * 16}
+    assert all(a.dtype == torch.float32 and a.shape == (384, 1536) for a in got)
+    err = rel_error(got, want)
+    assert err <= e_fp32, f"kernel 9 {err:.3e} against the SGEMMs' fp32 {e_fp32:.3e}"
+    assert e_tf32 > 2 * e_fp32, f"the SGEMMs in TF32 {e_tf32:.3e} within {2 * e_fp32:.3e}"
+
+
+@pytest.mark.parametrize("r,t,h", [
+    (256, 24, 384),  # msrvtt-qa's and msvd-qa's question BiLSTMs
+    (256, 40, 384),  # svqa's
+    (37, 9, 100),    # R not a multiple of 4, H not of 128: ragged M and N tiles
+])
+def test_whh_grad_f32_matches_fp64_on_kernel_4s_ragged_dgates(rs, cuda, r, t, h):
+    """On kernels 3 and 4's own hprev and dgates with ragged lengths (zero
+    dgates at the masked steps): within the library SGEMMs' fp32 error, and
+    each direction's gradient by the contract, in kernel time."""
+    g = 4 * h
+    xf, xb = _t(rs, cuda, t, r, g), _t(rs, cuda, t, r, g)
+    wf, wb = _t(rs, cuda, h, g, scale=0.1), _t(rs, cuda, h, g, scale=0.1)
+    lens = torch.from_numpy(rs.randint(1, t + 1, (r,)).astype(np.int32)).to(cuda)
+    _, outs, hprev, cprev, acts = lstm_train_kernel.bilstm_train_fwd(xf, xb, wf, wb, lens, with_outputs=True)
+    dxf, dxb = lstm_train_kernel.bilstm_train_bwd(acts, wf, wb, lens, cprev, _t(rs, cuda, r, 2 * h),
+                                                  _t(rs, cuda, r, t, 2 * h))
+    args = (hprev, dxf, dxb)
+    want = fp64_whh(*args)
+    e_fp32, _ = whh_sgemm_errors(args, want)
+    got = whh_grad_kernel.whh_grad_f32(*args)
+    torch.cuda.synchronize()
+    err = rel_error(got, want)
+    assert err <= max(e_fp32, 1e-6), f"{err:.3e} against the SGEMMs' {e_fp32:.3e}"
+    h64 = hprev.double()
+    want_b = sum(h64[s, :, h:].t() @ dxb[s].double() for s in range(t))
+    torch.testing.assert_close(got[1].double(), want_b, rtol=1e-5, atol=1e-5 * want_b.abs().max().item())
+
+
+@pytest.mark.parametrize("r,t,h,splits", [
+    (5, 7, 8, None),      # R odd, under one k-block
+    (33, 1, 4, None),     # T 1, R one past a k-block, R_pad 36
+    (1, 1, 1, None),      # the least the kernel takes
+    (130, 3, 200, None),  # two M tiles a direction, two N tiles
+    (64, 6, 384, 1),      # one split: the units do not fill the card
+    (64, 6, 384, 12),     # every k-block its own split
+])
+def test_whh_grad_f32_matches_fp64_on_small_shapes(cuda, r, t, h, splits):
+    args = whh_inputs(r, torch.Generator(device=cuda).manual_seed(r * t + h), t=t, h=h)
+    want = fp64_whh(*args)
+    e_fp32, _ = whh_sgemm_errors(args, want)
+    got = whh_grad_kernel._whh_cuda(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert all(a.dtype == torch.float32 and a.shape == (h, 4 * h) for a in got)
+    err = rel_error(got, want)
+    assert err <= max(e_fp32, 1e-6), f"{err:.3e} against the SGEMMs' {e_fp32:.3e}"
+
+
+def test_whh_grad_f32_gives_the_same_bits_on_every_run(cuda):
+    """The splits are summed in a fixed order: one input, the same bits,
+    at the cells' split count and at another."""
+    args = whh_inputs(4096, torch.Generator(device=cuda).manual_seed(1))
+    first = whh_grad_kernel.whh_grad_f32(*args)
+    for _ in range(3):
+        again = whh_grad_kernel.whh_grad_f32(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    other = whh_grad_kernel._whh_cuda(*args, splits=5)
+    assert all(torch.equal(a, b) for a, b in zip(other, whh_grad_kernel._whh_cuda(*args, splits=5)))
+
+
+def test_whh_grad_f32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    hprev, dx = torch.zeros(4, 3, 16, device=cuda), torch.zeros(4, 3, 32, device=cuda)
+    before = whh_grad_kernel.whh_grad_f32.launches
+    with pytest.raises(TypeError):
+        whh_grad_kernel.whh_grad_f32(hprev.to(torch.bfloat16), dx, dx)
+    with pytest.raises(ValueError, match="shape"):
+        whh_grad_kernel.whh_grad_f32(hprev, torch.zeros(4, 3, 36, device=cuda), dx)
+    with pytest.raises(ValueError, match="aligned"):
+        whh_grad_kernel.whh_grad_f32(hprev, torch.zeros(4 * 3 * 32 + 1, device=cuda)[1:].view(4, 3, 32), dx)
+    with pytest.raises(ValueError, match="contiguous"):
+        whh_grad_kernel.whh_grad_f32(torch.zeros(3, 4, 16, device=cuda).transpose(0, 1), dx, dx)
+    with pytest.raises(RuntimeError, match="autograd"):
+        whh_grad_kernel.whh_grad_f32(hprev, dx.clone().requires_grad_(), dx)
+    with pytest.raises(RuntimeError, match="cudaError 1"):  # more splits than k-blocks
+        whh_grad_kernel._whh_cuda(hprev, dx, dx, splits=5)
+    assert whh_grad_kernel.whh_grad_f32.launches == before
+
+
 def test_mm_f32_keeps_an_fp32_output(rs, cuda):
     """The streamed product on the card: bf16 operands, fp32 sums and an
     fp32 output, equal to the fp32 product of the rounded operands up to the
@@ -1022,9 +1127,9 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
     on one device), kernels on: each step's loss, the updated-parameter
     checksum and the eval step's predictions against one process's step on
     the same global batches, the second with 3 of 8 rows padded (the fp32
-    train limits: 1e-4 relative); kernels 3 and 4 launch 3 times a step on
-    each rank and kernels 7 and 8 once, kernels 1 and 2 three and two times
-    an eval forward and kernel 7 once."""
+    train limits: 1e-4 relative); kernels 3, 4 and 9 launch 3 times a step
+    on each rank and kernels 7 and 8 once, kernels 1 and 2 three and two
+    times an eval forward and kernel 7 once."""
     from dualvgr_tpu_torch.parallel import dryrun
 
     batches = dryrun.tiny_batches(1, seed=11) + dryrun.tiny_batches(1, seed=12, pad=3)
@@ -1035,5 +1140,5 @@ def test_two_gloo_ranks_on_the_card_match_one_process(cuda):
         np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-4)
         np.testing.assert_allclose(r["checksum"], one["checksum"], rtol=1e-4)
         np.testing.assert_array_equal(r["preds"], one["preds"])
-        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0, 2, 2) == one["launches_train"]
-        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0, 1, 0) == one["launches_eval"]
+        assert r["launches_train"] == (0, 0, 6, 6, 0, 0, 0, 2, 2, 6) == one["launches_train"]
+        assert r["launches_eval"] == (3, 2, 0, 0, 0, 0, 0, 1, 0, 0) == one["launches_eval"]

@@ -18,9 +18,10 @@ counted; both sides run Adam's fused kernel from the second step, so that
 bf16's rounding cannot amplify a difference of Adam's kernels. A step's metrics stay as they were after the next
 replay; after ``adam.load_state_dict`` the next step captures again and
 still agrees with the eager step; the kernels' launch counters grow by one
-step's launches a replay, kernel 7's and kernel 8's by one each; kernel 7 replayed in the
-graph gives the losses of the library's projection within 1e-5, and
-kernel 8 those of the library's weight gradient.
+step's launches a replay, kernel 7's and kernel 8's by one each and kernel
+9's by three; kernel 7 replayed in the graph gives the losses of the
+library's projection within 1e-5, kernel 8 those of the library's weight
+gradient, and kernel 9 those of the library's recurrent weight gradient.
 """
 
 import copy
@@ -174,6 +175,7 @@ def test_a_replay_counts_the_launches_it_holds(cuda):
     assert one_step[2] > 0 and one_step[3] > 0  # kernels 3 and 4
     assert one_step[7] == 1  # kernel 7: both directions of the appearance projection in one launch
     assert one_step[8] == 1  # kernel 8: both directions of its weight gradient in one launch
+    assert one_step[9] == 3  # kernel 9: dW_hh of the appearance and both question BiLSTMs, a launch each
     assert counts == [one_step] * 4
 
 
@@ -218,5 +220,29 @@ def test_kernel_8_in_the_captured_step_matches_the_library_weight_gradient(cuda,
     assert counters["proj.tc_f32_wgrad_rows"] == 2 * b * c * f == counters["proj.tc_f32_rows"]
     assert (counters["train.graph_captures"], counters["train.graph_replays"]) == (1, 5)
     monkeypatch.setattr(lstm_train, "input_proj_f32_wgrad", proj_kernel.input_proj_f32_wgrad_reference)
+    want = [float(_eager(eager, b)["loss"]) for b in batches]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_kernel_9_in_the_captured_step_matches_the_library_recurrent_weight_gradient(cuda, monkeypatch):
+    """Kernel 9 captured and replayed in the graph: 6 graphed steps against
+    6 eager ones whose dW_hh is the two library products of each BiLSTM
+    (fp32, TF32 off), the losses within 1e-5 relative; the capture and the
+    eager first step count their rows in ``lstm.tc_f32_whh_rows``: the
+    appearance BiLSTM's R*T and both question BiLSTMs', the replays
+    nothing."""
+    from dualvgr_tpu_torch.ops import lstm_train, whh_grad_kernel
+
+    graphed, eager = _state(), _state()
+    batches = _batches(6)
+    trace.enable()
+    got = [float(_graphed(graphed, b)["loss"]) for b in batches]
+    trace.disable()
+    counters = trace.counters()
+    b, c, f, _ = batches[0][0].shape
+    tokens = batches[0][2].shape[1]
+    assert counters["lstm.tc_f32_whh_rows"] == 2 * (b * c * f + 2 * b * tokens)
+    assert (counters["train.graph_captures"], counters["train.graph_replays"]) == (1, 5)
+    monkeypatch.setattr(lstm_train, "whh_grad_f32", whh_grad_kernel.whh_grad_f32_reference)
     want = [float(_eager(eager, b)["loss"]) for b in batches]
     np.testing.assert_allclose(got, want, rtol=1e-5)

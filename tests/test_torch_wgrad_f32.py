@@ -137,10 +137,11 @@ def test_the_cuda_body_pads_x_to_tmas_strides(stand_in, monkeypatch, r):
 
 
 def test_counted_kernels_end_with_kernel_8_and_the_table_declares_it():
-    assert len(COUNTED_KERNELS) == 9 and COUNTED_KERNELS[-1] is proj_kernel.input_proj_f32_wgrad
-    assert COUNTED_KERNELS[-2] is proj_kernel.input_proj_f32
+    # kernel 8 between kernel 7 and kernel 9 (tests/test_torch_whh_grad_f32.py)
+    assert len(COUNTED_KERNELS) == 10 and COUNTED_KERNELS[8] is proj_kernel.input_proj_f32_wgrad
+    assert COUNTED_KERNELS[7] is proj_kernel.input_proj_f32
     assert sorted(_build.ENTRIES["wgrad_f32.cu"]) == ["wgrad_f32_launch", "wgrad_f32_smem_bytes"]
-    assert sum(len(entries) for entries in _build.ENTRIES.values()) == 19
+    assert sum(len(entries) for entries in _build.ENTRIES.values()) == 21
 
 
 @pytest.fixture
